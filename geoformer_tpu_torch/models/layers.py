@@ -1,0 +1,77 @@
+"""Layers that hold f32 parameters and compute in the activation's type.
+
+The JAX package keeps parameters in f32 and runs matmuls and convolutions
+in the model's compute dtype (flax ``dtype=``); these layers do the same,
+so one set of weights serves the f32 and the bf16 model. Parameter names
+and layouts are PyTorch's ([out, in] for a dense kernel, OIHW for a
+convolution); weights.py converts the JAX layouts.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Dense(nn.Module):
+    """y = x W^T (+ b), computed in ``dtype`` (flax nn.Dense)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class Conv(nn.Module):
+    """Bias-free k x k convolution with (k//2) zero padding, NCHW."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.stride = stride
+        self.padding = k // 2
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                        stride=self.stride, padding=self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over NCHW with running statistics (eps 1e-5):
+    f32 statistics, output in the input's type (flax use_running_average)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False,
+                            eps=self.eps)
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """Fill with N(0, 1/fan_in) truncated at two standard deviations, the
+    flax default initializer, drawn from ``generator``."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        w = torch.empty(weight.shape, dtype=torch.float32)
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        weight.copy_(w)
