@@ -1,11 +1,11 @@
 """Configuration of the PyTorch port.
 
-The port's own copy of the model dataclasses of geoformer_tpu/config.py,
-with the same fields and defaults, so a configuration written for one
-package reads the same in the other. (Training configurations wait for the
-training slice.) Options that this slice does not run (int8 paths,
-sequence parallelism, the sinkhorn matcher) are kept as fields so the
-dataclasses stay identical; the model raises NotImplementedError on them.
+The port's own copy of the model and training dataclasses of
+geoformer_tpu/config.py, with the same fields and defaults, so a
+configuration written for one package reads the same in the other.
+Options that the port does not run yet (int8 paths, sequence parallelism,
+the sinkhorn matcher) are kept as fields so the dataclasses stay
+identical; the model raises NotImplementedError on them.
 """
 
 from __future__ import annotations
@@ -108,6 +108,54 @@ class GeoFormerConfig:
 
     def replace(self, **kw) -> "GeoFormerConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """GeoLoss: focal coarse terms (two passes) and BCE fine term."""
+
+    coarse_type: str = "focal"  # 'focal' | 'cross_entropy'
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    pos_weight: float = 1.0
+    neg_weight: float = 1.0
+    coarse_weight: float = 1.0
+    fine_weight: float = 1.0
+    sparse_spvs: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer and LR schedule."""
+
+    optimizer: str = "adamw"
+    canonical_lr: float = 6e-3
+    canonical_bs: int = 64
+    true_lr: float = 0.0  # 0 => derived: canonical_lr * world_bs / canonical_bs
+    adamw_decay: float = 0.1
+    warmup_steps: int = 4800       # canonical units (divided by LR scaling)
+    warmup_actual: int = 0         # >0 => warmup in ACTUAL steps, no scaling
+    warmup_ratio: float = 0.0
+    scheduler: str = "multistep"  # 'multistep' | 'cosine' | 'exponential'
+    mslr_milestones: Tuple[int, ...] = (3, 6, 9, 12)  # epochs
+    mslr_gamma: float = 0.5
+    cosa_tmax: int = 30
+    elr_gamma: float = 0.999992
+    gradient_clipping: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    loss: LossConfig = LossConfig()
+    optim: OptimConfig = OptimConfig()
+    batch_size: int = 8            # global batch
+    steps_per_epoch: int = 1000
+    num_epochs: int = 15
+    seed: int = 66
+    image_hw: Tuple[int, int] = (480, 640)
+    ckpt_dir: str = "checkpoints"
+    log_every: int = 50
+    ckpt_every_steps: int = 1000
 
 
 def bench_config(use_bf16: bool = True) -> GeoFormerConfig:

@@ -60,8 +60,9 @@ class BatchedMatcher:
                 m0[j, :a.shape[0] // s, :a.shape[1] // s] = 1.0
                 m1[j, :c.shape[0] // s, :c.shape[1] // s] = 1.0
             gen = torch.Generator(self.device).manual_seed(0)
-            res = self.model(*(torch.from_numpy(x).to(self.device)
-                               for x in (i0, i1, m0, m1)), generator=gen)
+            with torch.no_grad():
+                res = self.model(*(torch.from_numpy(x).to(self.device)
+                                   for x in (i0, i1, m0, m1)), generator=gen)
             mk0 = res.fine.mkpts0.cpu().numpy()
             mk1 = res.fine.mkpts1.cpu().numpy()
             mc = res.fine.mconf.float().cpu().numpy()

@@ -73,6 +73,7 @@ def main(argv=None) -> dict:
     i1 = torch.from_numpy(np.stack([b for _, b in pairs])[..., None]).to(
         device)
 
+    @torch.no_grad()
     def forward():
         gen = torch.Generator(device).manual_seed(0)
         return model(i0, i1, generator=gen)

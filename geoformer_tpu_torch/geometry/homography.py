@@ -1,15 +1,27 @@
 """Homography helpers, batched.
 
-Counterpart of warp_points, four_point_homography and _solve8 in
-geoformer_tpu/geometry/homography.py. Warps are explicit multiply-adds in
-f32 (as in the JAX package); the 8x8 solve is an unrolled Gauss-Jordan with
-partial pivoting that gives inf/nan on singular systems instead of raising,
-so callers can test finiteness as the JAX package does.
+Counterpart of grid_points, warp_points, four_point_homography, _solve8
+and sample_homography in geoformer_tpu/geometry/homography.py. Warps are
+explicit multiply-adds in f32 (as in the JAX package); the 8x8 solve is an
+unrolled Gauss-Jordan with partial pivoting that gives inf/nan on singular
+systems instead of raising, so callers can test finiteness as the JAX
+package does. The random draws of sample_homography come from a
+torch.Generator, or are given, so that a test can hand both packages the
+same draws.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def grid_points(h: int, w: int, scale: int = 1, device=None) -> torch.Tensor:
+    """[h*w, 2] (x, y) pixel coordinates of a row-major grid with stride
+    ``scale``: cell (r, c) -> (c * scale, r * scale), f32."""
+    ys = torch.arange(h, dtype=torch.float32, device=device) * scale
+    xs = torch.arange(w, dtype=torch.float32, device=device) * scale
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
 
 
 def warp_points(points: torch.Tensor, H: torch.Tensor,
@@ -62,3 +74,45 @@ def four_point_homography(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     sol = solve8(A, b)
     return torch.cat([sol, torch.ones_like(sol[..., :1])],
                      dim=-1).reshape(*sol.shape[:-1], 3, 3)
+
+
+def sample_homography_draws(b: int, image_hw, generator=None, device=None):
+    """The random draws of sample_homography for b samples, from
+    ``generator``: corner offsets ("big" in [-rg//3, rg//3), "small" in
+    [-5, 5), [b, 4, 2] float), "u_warp" [b], "flip" [b] int in {0, 1} and
+    "u_flip" [b, 2], uniforms in [0, 1)."""
+    h, w = image_hw
+    rg = max(h, w)
+    kw = dict(generator=generator, device=device)
+    return {
+        "big": torch.randint(-rg // 3, rg // 3, (b, 4, 2), **kw).float(),
+        "small": torch.randint(-5, 5, (b, 4, 2), **kw).float(),
+        "u_warp": torch.rand((b,), **kw),
+        "flip": torch.randint(0, 2, (b,), **kw),
+        "u_flip": torch.rand((b, 2), **kw),
+    }
+
+
+def sample_homography(draws, image_hw, small_warp_p: float = 0.2,
+                      flip_p: float = 0.2) -> torch.Tensor:
+    """Random training homographies [b, 3, 3] from sample_homography_draws
+    (counterpart of the JAX sample_homography, batched): a random 4-corner
+    perturbation, the small one with probability small_warp_p, and with
+    probability flip_p an axis flip (replacing H with probability 0.6, else
+    composed after it)."""
+    h, w = image_hw
+    big = draws["big"]
+    dev = big.device
+    corners = torch.tensor([[0, 0], [0, h], [w, 0], [w, h]],
+                           dtype=torch.float32, device=dev)
+    small_now = (draws["u_warp"] < small_warp_p)[:, None, None]
+    warp = torch.where(small_now, draws["small"], big)
+    H = four_point_homography(corners.expand_as(warp), corners + warp)
+    flips = torch.tensor([[[-1, 0, w], [0, 1, 0], [0, 0, 1]],
+                          [[1, 0, 0], [0, -1, h], [0, 0, 1]]],
+                         dtype=torch.float32, device=dev)
+    flip = flips[draws["flip"].long()]
+    u = draws["u_flip"]
+    return torch.where((u[:, 0] < flip_p)[:, None, None],
+                       torch.where((u[:, 1] < 0.6)[:, None, None], flip,
+                                   H @ flip), H)

@@ -3,8 +3,10 @@
 Counterpart of geoformer_tpu/models/backbone.py (ResNetFPN, the (8, 2)
 ladder): a 1-channel 7x7/2 stem, three 2-block residual stages at 1/2, 1/4
 and 1/8, and a top-down FPN with aligned-corner bilinear upsampling and
-leaky_relu(0.01). BatchNorm runs with running statistics (eval). Inputs and
-outputs keep the JAX layout (channels last); inside, the layers run NCHW.
+leaky_relu(0.01). BatchNorm runs with running statistics, or with batch
+statistics over all the images given (and updates the running ones) when
+``train`` is set. Inputs and outputs keep the JAX layout (channels last);
+inside, the layers run NCHW.
 """
 
 from __future__ import annotations
@@ -32,11 +34,11 @@ class BasicBlock(nn.Module):
             self.conv_down = Conv(cin, planes, 1, stride, dtype)
             self.bn_down = BatchNorm(planes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
         if self.stride != 1:
-            x = self.bn_down(self.conv_down(x))
+            x = self.bn_down(self.conv_down(x), train)
         return F.relu(x + y)
 
 
@@ -65,26 +67,27 @@ class ResNetFPN(nn.Module):
         self.l1_bn = BatchNorm(d2)
         self.l1_m2 = Conv(d2, d1, 3, 1, dtype)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, 1] in [0, 1]. Returns (coarse [B, H/8, W/8, d3],
         fine [B, H/2, W/2, d1]), channels last."""
         x = x.permute(0, 3, 1, 2)
-        x0 = F.relu(self.bn1(self.conv1(x)))
-        x1 = self.layer1_1(self.layer1_0(x0))      # 1/2
-        x2 = self.layer2_1(self.layer2_0(x1))      # 1/4
-        x3 = self.layer3_1(self.layer3_0(x2))      # 1/8
+        x0 = F.relu(self.bn1(self.conv1(x), train))
+        x1 = self.layer1_1(self.layer1_0(x0, train), train)      # 1/2
+        x2 = self.layer2_1(self.layer2_0(x1, train), train)      # 1/4
+        x3 = self.layer3_1(self.layer3_0(x2, train), train)      # 1/8
 
         x3_out = self.l3_out(x3)
         x2_out = self.l2_out(x2)
         m2 = x2_out + resize_bilinear_align_corners_nchw(
             x3_out, x2_out.shape[2:])
-        m2 = F.leaky_relu(self.l2_bn(self.l2_m1(m2)), 0.01)
+        m2 = F.leaky_relu(self.l2_bn(self.l2_m1(m2), train), 0.01)
         x2_out = self.l2_m2(m2)
 
         x1_out = self.l1_out(x1)
         m1 = x1_out + resize_bilinear_align_corners_nchw(
             x2_out, x1_out.shape[2:])
-        m1 = F.leaky_relu(self.l1_bn(self.l1_m1(m1)), 0.01)
+        m1 = F.leaky_relu(self.l1_bn(self.l1_m1(m1), train), 0.01)
         x1_out = self.l1_m2(m1)
         return x3_out.permute(0, 2, 3, 1), x1_out.permute(0, 2, 3, 1)
 

@@ -129,8 +129,11 @@ class GeoModule(nn.Module):
         cfg = self.cfg
         b, h0, w0, c = cnn_feat0.shape
         _, h1, w1, _ = cnn_feat1.shape
-        state = _build_geo_state(matches, (h0, w0), (h1, w1), scale, cfg,
-                                 sample_idx, generator)
+        # the geometric fit is a hard decision: no gradient flows through
+        # it (stop_gradient in the JAX package)
+        with torch.no_grad():
+            state = _build_geo_state(matches, (h0, w0), (h1, w1), scale,
+                                     cfg, sample_idx, generator)
         feat0 = add_position_encoding(cnn_feat0).reshape(b, h0 * w0, c)
         feat1 = add_position_encoding(cnn_feat1).reshape(b, h1 * w1, c)
 

@@ -1,4 +1,4 @@
-"""Full GeoFormer model, inference forward.
+"""Full GeoFormer model, inference and training forward.
 
 Counterpart of geoformer_tpu/models/geoformer.py:
 
@@ -7,15 +7,15 @@ Counterpart of geoformer_tpu/models/geoformer.py:
     -> coarse match (pass 2) -> fine window gather -> fine LoFTR
     -> fine dual-softmax decode
 
-Both images share one static shape. This slice ports the inference forward
-with the streamed dual-softmax matcher; training, the dense confidence
-output, the sinkhorn matcher, sequence parallelism and the int8 paths raise
-NotImplementedError.
+Both images share one static shape. The forward runs with the streamed
+dual-softmax matcher and is differentiable (the caller of inference wraps
+it in ``torch.no_grad``); the dense confidence output, the sinkhorn
+matcher, sequence parallelism and the int8 paths raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -43,6 +43,9 @@ class MatchOutput(NamedTuple):
     fine: FineMatches           # final matches + fine confidence
     geo: GeoState               # RANSAC state (H, inlier stats)
     matches1: CoarseMatches     # first-pass coarse matches (RANSAC input)
+    # (f0, f1, g0, g1): coarse features before/after the GAM, for the
+    # streaming loss; empty unless return_feats=True.
+    feats: Tuple[torch.Tensor, ...] = ()
 
 
 class GeoFormer(nn.Module):
@@ -75,16 +78,20 @@ class GeoFormer(nn.Module):
             cfg.fine.d_model, cfg.fine.nhead, cfg.fine.layer_names,
             cfg.fine.attention, dtype=dtype)
 
-    @torch.no_grad()
     def forward(self, image0, image1, mask0=None, mask1=None,
                 sample_idx: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> MatchOutput:
+                generator: Optional[torch.Generator] = None,
+                train: bool = False,
+                return_feats: bool = False) -> MatchOutput:
         """
         Args:
             image0/1: [B, H, W, 1] grayscale in [0, 1], one shape.
             mask0/1: [B, H/8, W/8] coarse validity masks (padding).
             sample_idx: optional [B, ransac_iters, 4] RANSAC samples.
             generator: torch.Generator for the RANSAC samples otherwise.
+            train: BatchNorm on batch statistics (updating the running
+                ones) and the force-one-match rule, as in the JAX model.
+            return_feats: also return (f0, f1, g0, g1) in ``feats``.
         """
         cfg = self.config
         b, H, W, _ = image0.shape
@@ -92,16 +99,21 @@ class GeoFormer(nn.Module):
         m0 = mask0.reshape(b, -1) if mask0 is not None else None
         m1 = mask1.reshape(b, -1) if mask1 is not None else None
 
+        force_one = cfg.match.force_one_match or train
+
         def matcher(a, c):
-            return coarse_match(a, c, cfg.match.thr,
-                                cfg.match.dsmax_temperature,
-                                cfg.match.max_matches, m0, m1,
-                                force_one=cfg.match.force_one_match,
-                                streaming=cfg.match.streaming_extract)
+            # match ids carry no gradient; no graph is kept for the tiles
+            with torch.no_grad():
+                return coarse_match(a, c, cfg.match.thr,
+                                    cfg.match.dsmax_temperature,
+                                    cfg.match.max_matches, m0, m1,
+                                    force_one=force_one,
+                                    streaming=cfg.match.streaming_extract)
 
         # named ranges: the stages a profiler trace is read by
         with record_function("backbone"):
-            feats_c, feats_f = self.backbone(torch.cat([image0, image1]))
+            feats_c, feats_f = self.backbone(torch.cat([image0, image1]),
+                                             train)
             cnn_c0, cnn_c1 = feats_c[:b], feats_c[b:]
             feat_f0, feat_f1 = feats_f[:b], feats_f[b:]
         with record_function("coarse_transformer"):
@@ -129,4 +141,5 @@ class GeoFormer(nn.Module):
                                  wc, wc, cfg.coarse_scale, cfg.fine_scale,
                                  cfg.fine_match.window_size,
                                  cfg.fine_match.thr)
-        return MatchOutput(matches2, fine, geo_state, matches1)
+        feats = (f0, f1, g0, g1) if return_feats else ()
+        return MatchOutput(matches2, fine, geo_state, matches1, feats)

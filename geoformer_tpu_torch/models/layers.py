@@ -48,8 +48,18 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW with running statistics (eps 1e-5):
-    f32 statistics, output in the input's type (flax use_running_average)."""
+    """BatchNorm over NCHW (eps 1e-5, flax momentum 0.9), output in the
+    input's type.
+
+    Inference (``train=False``) normalizes with the running statistics
+    (flax use_running_average). Training normalizes with the batch mean and
+    the biased variance over (N, H, W), computed in f32 as flax computes them
+    (E[x^2] - E[x]^2, clipped at 0), and updates the running statistics as
+    flax does: ``ra <- 0.9 ra + 0.1 stat`` with the *biased* variance
+    (F.batch_norm's training mode stores the unbiased one, so the update is
+    written out). The update is in place."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -59,10 +69,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+            self.running_var.mul_(m).add_((1 - m) * var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,

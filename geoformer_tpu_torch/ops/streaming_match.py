@@ -9,7 +9,11 @@ geoformer_tpu/ops/fused_loss.py. With sim_ij = <f0_i, f1_j> / (C * T),
 so match extraction needs the two LSE vectors (one streamed pass over row
 chunks) and the row/col arg-maxes of 2 sim - c and 2 sim - r (a second
 pass). The [B, L, S] matrix is never built: peak memory is one
-[B, chunk, S] tile. The row chunk is 600, as in the JAX package.
+[B, chunk, S] tile. The row chunk is 600, as in the JAX package. The LSE
+pass is differentiable (the streaming loss, ops/fused_loss.py): each chunk
+runs under ``torch.utils.checkpoint``, as JAX runs it under
+``jax.checkpoint``, so the backward recomputes a chunk's tile instead of
+keeping L / chunk of them.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _NEG_INF = -1e9  # the dense dual softmax's mask fill
 
@@ -39,10 +44,20 @@ def _tile(f0c, f1, rv, col_valid, inv):
     return t.masked_fill(~valid, _NEG_INF)
 
 
+def _lse_chunk(f0c, f1, rv, col_valid, inv: float, m, acc):
+    """One row chunk of the streamed LSEs: (row LSE [B, chunk], the column
+    statistics m and acc updated)."""
+    t = _tile(f0c, f1, rv, col_valid, inv)
+    m_new = torch.maximum(m, t.amax(dim=1))
+    acc = acc * torch.exp(m - m_new) + torch.exp(
+        t - m_new[:, None, :]).sum(dim=1)
+    return torch.logsumexp(t, dim=2), m_new, acc
+
+
 def sim_lse(feat0, feat1, temperature: float, mask0=None, mask1=None,
             chunk: int = 600) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row/col logsumexp of the masked similarity matrix, streamed over row
-    chunks. Returns (r [B, L], c [B, S]) in f32."""
+    chunks, each checkpointed. Returns (r [B, L], c [B, S]) in f32."""
     b, l, _ = feat0.shape
     s = feat1.shape[1]
     row_valid, col_valid, inv = _prep(feat0, mask0, mask1, temperature)
@@ -50,13 +65,11 @@ def sim_lse(feat0, feat1, temperature: float, mask0=None, mask1=None,
     acc = torch.zeros((b, s), dtype=torch.float32, device=feat0.device)
     rows = []
     for start in range(0, l, chunk):
-        t = _tile(feat0[:, start:start + chunk], feat1,
-                  row_valid[:, start:start + chunk], col_valid, inv)
-        rows.append(torch.logsumexp(t, dim=2))
-        m_new = torch.maximum(m, t.amax(dim=1))
-        acc = acc * torch.exp(m - m_new) + torch.exp(
-            t - m_new[:, None, :]).sum(dim=1)
-        m = m_new
+        r_c, m, acc = checkpoint(
+            _lse_chunk, feat0[:, start:start + chunk], feat1,
+            row_valid[:, start:start + chunk], col_valid, inv, m, acc,
+            use_reentrant=False)
+        rows.append(r_c)
     c = m + torch.log(torch.clamp(acc, min=1e-30))
     return torch.cat(rows, dim=1), c
 

@@ -147,8 +147,9 @@ def test_cpu_wrappers_do_not_count_launches():
     gk.box_window_attention(t(q), t(k), t(v), t(centers), grid)
     q, k, v, mask = _mka_inputs(7)
     gk.masked_kv_attention(t(q), t(k), t(v), t(mask))
-    assert gk.LAUNCHES == {"box_window_attention": 0,
-                           "masked_kv_attention": 0}
+    assert set(gk.LAUNCHES) >= {"box_window_attention",
+                                "masked_kv_attention"}
+    assert not any(gk.LAUNCHES.values()), gk.LAUNCHES
 
 
 @pytest.mark.parametrize("fn", ["box", "mka"])

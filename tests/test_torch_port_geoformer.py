@@ -189,8 +189,9 @@ def test_final_matches_meet_the_parity_bar(run, port_out):
 
 
 def test_cpu_forward_launches_no_kernel(port_out):
-    assert gam_kernels.LAUNCHES == {"box_window_attention": 0,
-                                    "masked_kv_attention": 0}
+    assert set(gam_kernels.LAUNCHES) >= {"box_window_attention",
+                                         "masked_kv_attention"}
+    assert not any(gam_kernels.LAUNCHES.values()), gam_kernels.LAUNCHES
 
 
 def test_padded_forward_matches_jax(run):

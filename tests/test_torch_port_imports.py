@@ -104,12 +104,19 @@ def test_kernel_sources_and_hash():
     from geoformer_tpu_torch.ops import cuda_lib
 
     names = {p.name for p in cuda_lib.CSRC_DIR.glob("*.cu")}
-    assert names == {"box_window_attention.cu", "masked_kv_attention.cu"}
+    assert names == {"box_window_attention.cu", "masked_kv_attention.cu",
+                     "box_window_attention_bwd.cu",
+                     "masked_kv_attention_bwd.cu"}
     for p in cuda_lib.CSRC_DIR.glob("*.cu"):
         src = p.read_text()
         assert "torch/extension.h" not in src
         assert 'extern "C"' in src and "cudaGetLastError" in src
     h = cuda_lib.source_hash()
     assert len(h) == 16 and h == cuda_lib.source_hash()
-    assert set(cuda_lib.SIGNATURES) == {"gam_box_window_attention",
-                                        "gam_masked_kv_attention"}
+    assert set(cuda_lib.SIGNATURES) == {
+        "gam_box_window_attention", "gam_masked_kv_attention",
+        "gam_masked_kv_attention_bwd", "gam_box_window_attention_bwd_dq",
+        "gam_box_window_attention_bwd_dkv"}
+    for name in cuda_lib.SIGNATURES:
+        assert sum(f'"C" int {name}(' in p.read_text()
+                   for p in cuda_lib.CSRC_DIR.glob("*.cu")) == 1, name
