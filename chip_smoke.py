@@ -10,7 +10,9 @@ Phases, each printing its own lines and its seconds:
 2. kernels: the forward kernels K1 and K2 against their plain PyTorch
    versions on the card at the inference path's shapes (B=2), in bf16 and
    f32, with the stated tolerance, and the kernel's, the plain version's
-   and one library call's times beside the kernel's bound;
+   and one library call's times beside the kernel's bound; K2 also with
+   the same live counts packed first (the GAM's prefix mask) and at the
+   training path's shape (B=4, S=512, f32);
 3. main path: the port's BatchedMatcher at full width, bf16, 480x640, the
    bench configuration, random weights from a seed, on a textured image and
    its warp by a known homography; the launch counts of the kernels are
@@ -21,7 +23,9 @@ Phases, each printing its own lines and its seconds:
 4. backward kernels: K3, K4 and K5 against their plain backwards at the
    training path's shapes (B=4, L=4800; S=512 for K3), f32 and bf16, with
    the same numbers as phase 2 (library: the backward of
-   scaled_dot_product_attention with the same boolean mask);
+   scaled_dot_product_attention with the same boolean mask); K3 is timed
+   from K2's output and row statistics, as the train step runs it, and
+   also on the prefix mask;
 5. training path: run_training at the headline recipe (480x640, f32,
    batch 4, random weights, the procedural bank of 256 textures), one
    warm-up step and three timed ones, with the launch counts of K1-K5 read
@@ -52,9 +56,13 @@ import torch
 
 T_START = time.perf_counter()
 
-# One NVIDIA H100 SXM, published dense peaks (NVIDIA data sheet).
+# One NVIDIA H100 SXM, published dense peaks (NVIDIA data sheet). f32 on
+# the CUDA cores is 67 TFLOP/s; f32 products at f32 accuracy on the tensor
+# cores (3xTF32: three TF32 products each) reach 495 / 3 TFLOP/s, the rate
+# of K2's and K3's f32 path.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 
 KERNEL_B = 2
 GRID_HW = (60, 80)        # coarse grid of a 480x640 image
@@ -226,50 +234,127 @@ def phase_kernels(device):
         mask = (torch.rand((b, MAX_INLIERS), generator=gen) < 0.6)
         mask[-1] = False                          # RANSAC found no inliers
         mask = mask.to(device)
-        out = gk.masked_kv_attention_fwd(q, k, v, mask)
-        ref = gk.masked_kv_attention_plain(q, k, v, mask)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        mean_v = v[-1].float().mean(dim=0)                       # [H, D]
-        masked_err = (out[-1] - mean_v[None]).abs().max().item()
-        tol = TOL[("masked_kv_attention", dtype)]
-        log("kernels", name="masked_kv_attention", dtype=str(dtype),
-            shape=f"q{tuple(q.shape)}k{tuple(k.shape)}",
-            out_dtype=str(out.dtype), max_abs_err=f"{err:.3e}", tol=tol,
-            all_masked_row_vs_mean_v=f"{masked_err:.3e}")
-        check(out.dtype == torch.float32, "K2 must return f32")
-        check(err <= tol, f"K2 {dtype}: error {err} > {tol}")
-        check(masked_err <= tol, f"K2 {dtype}: all-masked row is not the "
-              f"mean of V ({masked_err})")
-        n_keep = mask.sum(dim=1).double()
-        flops = float((4.0 * HEAD_DIM * HEADS * s * n_keep).sum()
-                      + (n_keep == 0).sum() * MAX_INLIERS * HEAD_DIM * HEADS)
-        nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
-                  + mask.numel() + out.numel() * 4)
-        bound, by = _bound(nbytes, flops, dtype)
-        # the same call with every key live, for a bound that is not this
-        # mask's: every query scores every key
-        bound_live, by_live = _bound(
-            nbytes, 4.0 * HEAD_DIM * HEADS * s * MAX_INLIERS * b, dtype)
-        ms = time_ms(lambda: gk.masked_kv_attention_fwd(q, k, v, mask), 20)
-        plain_ms = time_ms(lambda: gk.masked_kv_attention_plain(
-            q, k, v, mask), 5)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        am = mask[:, None, None, :]
-        lib_ms = time_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(qt, kt, vt,
-                                                      attn_mask=am), 20)
-        log("kernels", name="masked_kv_attention", dtype=str(dtype),
-            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}",
-            bound_by=by, live_keys=[int(n) for n in n_keep.tolist()],
-            bound_all_live_ms=f"{bound_live:.4f}", bound_all_live_by=by_live)
-        results[("masked_kv_attention", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound, bound_by=by)
-        del q, k, v, out, ref
+        results[("masked_kv_attention", dtype)] = _mka_fwd_case(
+            gk, q, k, v, mask, "random")
+        _mka_fwd_case(gk, q, k, v, _prefix_like(mask), "prefix")
+        del q, k, v
         torch.cuda.empty_cache()
+    _mka_live_sweep(gk, device, torch.bfloat16, KERNEL_B, MAX_INLIERS,
+                    (0, 64, 256, 1024))
+    # ---- K2 at the training path's shape: B=4, S=512, f32
+    gen = torch.Generator().manual_seed(2)
+    q = _rand((TRAIN_B, s, HEADS, HEAD_DIM), gen, torch.float32, device)
+    k, v = (_rand((TRAIN_B, TRAIN_INLIERS, HEADS, HEAD_DIM), gen,
+                  torch.float32, device) for _ in range(2))
+    mask = torch.rand((TRAIN_B, TRAIN_INLIERS), generator=gen) < 0.6
+    mask[-1] = False
+    mask = mask.to(device)
+    _mka_fwd_case(gk, q, k, v, mask, "random")
+    _mka_fwd_case(gk, q, k, v, _prefix_like(mask), "prefix")
+    del q, k, v
+    torch.cuda.empty_cache()
     return results
+
+
+def _prefix_like(mask):
+    """The same live count in each batch row, packed first, as the GAM's
+    masked_select_capacity packs its inliers."""
+    n = mask.sum(dim=1, keepdim=True)
+    return torch.arange(mask.shape[1], device=mask.device)[None] < n
+
+
+def _mka_live_sweep(gk, device, dtype, b, s, counts, backward=False):
+    """K2 (or K3, from K2's statistics) on prefix masks with the same live
+    count in every batch row, for the time's dependence on that count;
+    each run is held against the plain version."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(3)
+    l = GRID_HW[0] * GRID_HW[1]
+    q = _rand((b, l, HEADS, HEAD_DIM), gen, dtype, device)
+    k, v = (_rand((b, s, HEADS, HEAD_DIM), gen, dtype, device)
+            for _ in range(2))
+    g = _rand((b, l, HEADS, HEAD_DIM), gen, torch.float32, device)
+    ms, errs = [], []
+    for n in counts:
+        mask = (torch.arange(s) < n)[None].expand(b, s).contiguous().to(
+            device)
+        if backward:
+            out, st = gk.masked_kv_attention_fwd(q, k, v, mask,
+                                                 return_stats=True)
+            got = gk.masked_kv_attention_bwd(q, k, v, mask, g, out=out,
+                                             stats=st)
+            ref = gk.masked_kv_attention_bwd_plain(q, k, v, mask, g)
+            errs.append(max(_rel_err(a, r) for a, r in zip(got, ref)))
+            ms.append(time_ms(lambda: gk.masked_kv_attention_bwd(
+                q, k, v, mask, g, out=out, stats=st), 10))
+        else:
+            out = gk.masked_kv_attention_fwd(q, k, v, mask)
+            ref = gk.masked_kv_attention_plain(q, k, v, mask)
+            errs.append((out - ref).abs().max().item())
+            ms.append(time_ms(lambda: gk.masked_kv_attention_fwd(
+                q, k, v, mask), 20))
+    name = "masked_kv_attention" + ("_bwd" if backward else "")
+    tol = BWD_TOL[dtype] if backward else TOL[(name, dtype)]
+    log("bwd_kernels" if backward else "kernels", name=name,
+        dtype=str(dtype), sweep="prefix", shape=f"q{tuple(q.shape)}"
+        f"k{tuple(k.shape)}", live_keys_per_row=list(counts),
+        kernel_ms=[f"{x:.4f}" for x in ms],
+        err=[f"{x:.3e}" for x in errs], tol=tol,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    check(max(errs) <= tol, f"{name} {dtype} prefix sweep: error "
+          f"{max(errs)} > {tol}")
+
+
+def _mka_fwd_case(gk, q, k, v, mask, kind):
+    """K2 against its plain version on one mask: the error, the rows with
+    no kept key against the mean of V, and the kernel's, the plain
+    version's and SDPA's times beside the bound of this mask's work."""
+    t0 = time.perf_counter()
+    dtype = q.dtype
+    b, s = mask.shape
+    out = gk.masked_kv_attention_fwd(q, k, v, mask)
+    ref = gk.masked_kv_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    n_keep = mask.sum(dim=1).double()
+    dead = (n_keep == 0).to(device=q.device)
+    mean_v = v.float().mean(dim=1, keepdim=True)                # [B, 1, H, D]
+    masked_err = ((out[dead] - mean_v[dead]).abs().max().item()
+                  if bool(dead.any()) else 0.0)
+    tol = TOL[("masked_kv_attention", dtype)]
+    log("kernels", name="masked_kv_attention", dtype=str(dtype), mask=kind,
+        shape=f"q{tuple(q.shape)}k{tuple(k.shape)}",
+        out_dtype=str(out.dtype), max_abs_err=f"{err:.3e}", tol=tol,
+        all_masked_row_vs_mean_v=f"{masked_err:.3e}")
+    check(out.dtype == torch.float32, "K2 must return f32")
+    check(err <= tol, f"K2 {dtype} {kind}: error {err} > {tol}")
+    check(masked_err <= tol, f"K2 {dtype} {kind}: all-masked row is not the "
+          f"mean of V ({masked_err})")
+    l = q.shape[1]
+    flops = float((4.0 * HEAD_DIM * HEADS * l * n_keep).sum()
+                  + (n_keep == 0).sum() * s * HEAD_DIM * HEADS)
+    nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
+              + mask.numel() + out.numel() * 4)
+    bound, by = _bound(nbytes, flops, dtype, PEAK_FLOPS_3XTF32)
+    # the same call with every key live, for a bound that is not this
+    # mask's: every query scores every key
+    bound_live, by_live = _bound(nbytes, 4.0 * HEAD_DIM * HEADS * l * s * b,
+                                 dtype, PEAK_FLOPS_3XTF32)
+    ms = time_ms(lambda: gk.masked_kv_attention_fwd(q, k, v, mask), 20)
+    plain_ms = time_ms(lambda: gk.masked_kv_attention_plain(q, k, v, mask), 5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    am = mask[:, None, None, :]
+    lib_ms = time_ms(lambda: torch.nn.functional.
+                     scaled_dot_product_attention(qt, kt, vt, attn_mask=am),
+                     20)
+    log("kernels", name="masked_kv_attention", dtype=str(dtype), mask=kind,
+        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}",
+        bound_by=by, live_keys=[int(n) for n in n_keep.tolist()],
+        bound_all_live_ms=f"{bound_live:.4f}", bound_all_live_by=by_live,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by)
 
 
 def _box_cells(centers, grid_hw, r) -> float:
@@ -290,9 +375,13 @@ def _dense_box(centers, grid_hw, r):
         (((sidx // wg)[None, None] - centers[..., 1:2]).abs() <= r)
 
 
-def _bound(nbytes: float, flops: float, dtype):
+def _bound(nbytes: float, flops: float, dtype, f32_peak=PEAK_FLOPS[
+        torch.float32]):
+    """The larger of bytes over the memory rate and operations over the
+    dtype's peak; f32_peak is the f32 rate of the kernel's path."""
+    peak = f32_peak if dtype == torch.float32 else PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -549,6 +638,59 @@ def _sdpa_bwd_ms(q, k, v, mask, g) -> float:
                                                retain_graph=True), 5)
 
 
+def _mka_bwd_case(gk, q, k, v, mask, g, kind):
+    """K3 against its plain backward on one mask. Called alone it runs K2
+    for the row statistics first; it is timed as the train step runs it,
+    from K2's output and statistics computed outside the timed loop."""
+    t0 = time.perf_counter()
+    dtype = q.dtype
+    tol = BWD_TOL[dtype]
+    b, s = mask.shape
+    got = gk.masked_kv_attention_bwd(q, k, v, mask, g)
+    out, stats = gk.masked_kv_attention_fwd(q, k, v, mask, return_stats=True)
+    again = gk.masked_kv_attention_bwd(q, k, v, mask, g, out=out, stats=stats)
+    ref = gk.masked_kv_attention_bwd_plain(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+    rel = max(_rel_err(a, r) for a, r in zip(got, ref))
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(got, ref))
+    n_keep = mask.sum(dim=1).double()
+    dead = (n_keep == 0).to(device=q.device)
+    colmean = (g.sum(dim=1, keepdim=True) / s)[dead]
+    masked_rel = (_rel_err(got[2][dead], colmean.expand_as(got[2][dead]))
+                  if bool(dead.any()) else 0.0)
+    masked_zero = bool((got[0][dead] == 0).all() and (got[1][dead] == 0).all())
+    l = q.shape[1]
+    flops = float((10.0 * HEAD_DIM * HEADS * l * n_keep).sum()
+                  + 2.0 * HEAD_DIM * HEADS * l * (n_keep == 0).sum())
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+              + mask.numel() + g.numel() * 4)
+    bound, by = _bound(nbytes, flops, dtype, PEAK_FLOPS_3XTF32)
+    ms = time_ms(lambda: gk.masked_kv_attention_bwd(q, k, v, mask, g, out=out,
+                                                    stats=stats), 10)
+    plain_ms = time_ms(lambda: gk.masked_kv_attention_bwd_plain(
+        q, k, v, mask, g), 3, warmup=1)
+    lib_ms = _sdpa_bwd_ms(q, k, v, mask[:, None, None, :], g)
+    log("bwd_kernels", name="masked_kv_attention_bwd", dtype=str(dtype),
+        mask=kind, shape=f"q{tuple(q.shape)}k{tuple(k.shape)}",
+        max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", rel_tol=tol,
+        all_masked_dv_rel_err=f"{masked_rel:.3e}",
+        all_masked_dq_dk_zero=masked_zero, alone_equals_from_stats=same_bits,
+        timed="from K2's out and stats, computed outside the timed loop",
+        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+        live_keys=[int(x) for x in n_keep.tolist()],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    check(rel <= tol, f"K3 {dtype} {kind}: relative error {rel} > {tol}")
+    check(masked_zero and masked_rel <= tol,
+          f"K3 {dtype} {kind}: the all-masked row breaks the contract")
+    check(same_bits, f"K3 {dtype} {kind}: alone and from K2's statistics "
+          "differ")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by)
+
+
 def phase_backward_kernels(device):
     """K3, K4 and K5 against their plain backwards at the training path's
     shapes (B=4, L=4800; S=512 for K3, S=4800 for K4/K5), f32 and bf16."""
@@ -569,40 +711,13 @@ def phase_backward_kernels(device):
         mask = torch.rand((b, TRAIN_INLIERS), generator=gen) < 0.6
         mask[-1] = False
         mask = mask.to(device)
-        got = gk.masked_kv_attention_bwd(q, k, v, mask, g)
-        ref = gk.masked_kv_attention_bwd_plain(q, k, v, mask, g)
-        torch.cuda.synchronize()
-        rel = max(_rel_err(a, r) for a, r in zip(got, ref))
-        err = max((a.float() - r.float()).abs().max().item()
-                  for a, r in zip(got, ref))
-        colmean = g[-1].sum(dim=0) / TRAIN_INLIERS
-        masked_rel = _rel_err(got[2][-1], colmean.expand_as(got[2][-1]))
-        masked_zero = bool((got[0][-1] == 0).all() and (got[1][-1] == 0).all())
-        n_keep = mask.sum(dim=1).double()
-        flops = float((10.0 * HEAD_DIM * HEADS * s * n_keep).sum()
-                      + 2.0 * HEAD_DIM * HEADS * s * (n_keep == 0).sum())
-        nbytes = (2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
-                  + mask.numel() + g.numel() * 4)
-        bound, by = _bound(nbytes, flops, dtype)
-        ms = time_ms(lambda: gk.masked_kv_attention_bwd(q, k, v, mask, g), 10)
-        plain_ms = time_ms(lambda: gk.masked_kv_attention_bwd_plain(
-            q, k, v, mask, g), 3, warmup=1)
-        lib_ms = _sdpa_bwd_ms(q, k, v, mask[:, None, None, :], g)
-        log("bwd_kernels", name="masked_kv_attention_bwd", dtype=str(dtype),
-            shape=f"q{tuple(q.shape)}k{tuple(k.shape)}",
-            max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", rel_tol=tol,
-            all_masked_dv_rel_err=f"{masked_rel:.3e}",
-            all_masked_dq_dk_zero=masked_zero, kernel_ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-            bound_ms=f"{bound:.4f}", bound_by=by,
-            live_keys=[int(x) for x in n_keep.tolist()])
-        check(rel <= tol, f"K3 {dtype}: relative error {rel} > {tol}")
-        check(masked_zero and masked_rel <= tol,
-              f"K3 {dtype}: the all-masked row breaks the contract")
-        results[("masked_kv_attention_bwd", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound, bound_by=by)
-        del q, k, v, g, got, ref
+        results[("masked_kv_attention_bwd", dtype)] = _mka_bwd_case(
+            gk, q, k, v, mask, g, "random")
+        _mka_bwd_case(gk, q, k, v, _prefix_like(mask), g, "prefix")
+        del q, k, v, g
+        if dtype == torch.float32:
+            _mka_live_sweep(gk, device, dtype, b, TRAIN_INLIERS,
+                            (0, 64, 256, 512), backward=True)
 
         # ---- K5 and K4: box-window backward, centres with off-grid rows
         q, k, v, g = (_rand((b, s, HEADS, HEAD_DIM), gen, dtype, device)
@@ -671,8 +786,9 @@ TRAIN_HW = (480, 640)
 TRAIN_STEPS = 4          # one warm-up step, then three timed
 TRAIN_SEED = 66          # run_training's default seed (weights and data)
 GAM_KERNEL_NAMES = ("mka_fwd_kernel", "box_fwd_kernel", "mka_bwd_dq_kernel",
-                    "mka_bwd_dkv_kernel", "box_bwd_dq_kernel",
-                    "box_bucket_kernel", "box_bwd_dkv_kernel")
+                    "mka_bwd_dkv_kernel", "mka_bwd_sum_kernel",
+                    "box_bwd_dq_kernel", "box_bucket_kernel",
+                    "box_bwd_dkv_kernel")
 
 
 def headline_config(**match):

@@ -1,5 +1,5 @@
-// Shared helpers of the GAM attention kernels: element loads in f32,
-// paired loads/stores along the head dimension, and warp reductions.
+// Shared helpers of the GAM attention kernels: paired loads/stores along
+// the head dimension in f32, and a warp sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,11 +8,6 @@
 namespace gam {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Two consecutive elements (8-byte or 4-byte aligned) widened to f32.
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -32,13 +27,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
   return x;
 }
 

@@ -32,10 +32,10 @@ SIGNATURES = {
     "gam_box_window_attention": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "gam_masked_kv_attention": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
     "gam_masked_kv_attention_bwd": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-        _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _F, _F, _I, _P),
     "gam_box_window_attention_bwd_dq": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
         _P),

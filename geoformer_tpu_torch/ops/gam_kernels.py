@@ -308,85 +308,163 @@ def box_window_attention(q, k, v, centers, grid_hw, radius: int = 2,
 
 # ---------------------------------------------------------------- K2 -------
 
-def masked_kv_attention_plain(q, k, v, kv_mask, mask_fill: float = -1e8):
+# The kernels skip key tiles with no kept key, which is exact while a masked
+# logit's weight exp(scale * mask_fill - m) underflows to 0 next to every
+# row's largest kept logit m; this bound keeps that so for |q.k| < ~8e3.
+_MAX_MKA_FILL = -1e4
+_MKA_TILE = 64  # queries or keys a tile of K2/K3 (csrc/gam_mma.cuh: kTile)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _check_fill(name, mask_fill):
+    if mask_fill > _MAX_MKA_FILL:
+        raise ValueError(f"{name}: mask_fill {mask_fill} > {_MAX_MKA_FILL}; "
+                         f"the kernel skips masked key tiles, exact only "
+                         f"where masked weights underflow to 0")
+
+
+def _mka_logits(q, k, kv_mask, mask_fill):
+    """(z [B, L, S, H], keep [B, 1, S, 1]): scale * q.k with masked keys set
+    to mask_fill before scaling, in the accumulation type."""
+    keep = kv_mask[:, None, :, None].to(torch.bool)
+    z = torch.einsum("blhd,bshd->blsh", _acc(q), _acc(k)).masked_fill(
+        ~keep, mask_fill)
+    return (1.0 / math.sqrt(q.shape[-1])) * z, keep
+
+
+def _mka_stats(q, k, kv_mask, mask_fill):
+    """[2, B, L, H]: each row's max m of the masked, scaled logits and its
+    log-denominator log(sum(exp(z - m))), in the accumulation type."""
+    z, _ = _mka_logits(q, k, kv_mask, mask_fill)
+    m = z.amax(dim=2)
+    logd = torch.log(torch.exp(z - m[:, :, None]).sum(dim=2))
+    return torch.stack([m, logd])
+
+
+def masked_kv_attention_plain(q, k, v, kv_mask, mask_fill: float = -1e8,
+                              return_stats: bool = False):
     """full_attention with a column mask, computed in f32 (f64 for f64) as
     the kernel contract has it (the TPU kernel accumulates in f32 and returns
-    f32)."""
-    return full_attention(_acc(q), _acc(k), _acc(v), kv_mask=kv_mask,
-                          mask_fill=mask_fill)
+    f32). With return_stats, also the rows' statistics ([2, B, L, H]: max
+    and log-denominator of the masked logits) that the backward takes."""
+    out = full_attention(_acc(q), _acc(k), _acc(v), kv_mask=kv_mask,
+                         mask_fill=mask_fill)
+    if not return_stats:
+        return out
+    return out, _mka_stats(q, k, kv_mask, mask_fill)
 
 
-def masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill: float = -1e8
-                            ) -> torch.Tensor:
+def masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill: float = -1e8,
+                            return_stats: bool = False):
     """K2. Masked-KV softmax attention. q: [B, L, H, D]; k, v: [B, S, H, D];
     kv_mask: [B, S] (true keeps the column). Returns f32 [B, L, H, D]; a
-    batch row whose mask is all false gets the mean of its S value rows."""
+    batch row whose mask is all false gets the mean of its S value rows.
+    With return_stats, returns (out, stats) where stats [2, B, L, H] f32
+    holds each row's max and log-denominator of the masked logits (for a
+    row with no kept key, scale * mask_fill and log S)."""
     if q.device.type == "cpu":
-        return masked_kv_attention_plain(q, k, v, kv_mask, mask_fill)
+        return masked_kv_attention_plain(q, k, v, kv_mask, mask_fill,
+                                         return_stats)
     _require_cuda("masked_kv_attention", q)
     _check_mka_shapes("masked_kv_attention", q, k, v, kv_mask)
+    _check_fill("masked_kv_attention", mask_fill)
     b, l, h, d = q.shape
     s = k.shape[1]
     mask = kv_mask.to(torch.bool).contiguous()
     _check_cuda_inputs("masked_kv_attention", (q, k, v), (mask,))
     lib = load_library()
     out = torch.empty((b, l, h, d), dtype=torch.float32, device=q.device)
+    stats = (torch.empty((2, b, l, h), dtype=torch.float32, device=q.device)
+             if return_stats else None)
     with torch.cuda.device(q.device):
         _launch("masked_kv_attention", lib.gam_masked_kv_attention,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), b, l, s, h, 1.0 / math.sqrt(d), mask_fill,
+                out.data_ptr(),
+                stats[0].data_ptr() if return_stats else None,
+                stats[1].data_ptr() if return_stats else None,
+                b, l, s, h, 1.0 / math.sqrt(d), mask_fill,
                 _DTYPES[q.dtype], _stream(q.device))
-    return out
+    return (out, stats) if return_stats else out
 
 
 # ---------------------------------------------------------------- K3 -------
 
 def masked_kv_attention_bwd_plain(q, k, v, kv_mask, g,
-                                  mask_fill: float = -1e8):
+                                  mask_fill: float = -1e8, out=None,
+                                  stats=None):
     """The counterpart of _mka_bwd_jnp (pallas_attention.py:194-209),
-    computed in f32 (f64 for f64): materializes [B, L, S, H]. Returns
-    (dq, dk, dv) in the dtypes of q, k, v."""
+    computed in f32 (f64 for f64) from the forward's output and row
+    statistics (masked_kv_attention_plain's when not given), by the
+    kernel's formulas: attn = exp((z - m) - logd), dot = rowsum(g * out).
+    Materializes [B, L, S, H]. Returns (dq, dk, dv) in the dtypes of q, k,
+    v."""
+    if out is None or stats is None:
+        out, stats = masked_kv_attention_plain(q, k, v, kv_mask, mask_fill,
+                                               return_stats=True)
     scale = 1.0 / math.sqrt(q.shape[-1])
     qa, ka, va, ga = _acc(q), _acc(k), _acc(v), _acc(g)
-    keep = kv_mask[:, None, :, None].to(torch.bool)
-    logits = torch.einsum("blhd,bshd->blsh", qa, ka).masked_fill(~keep,
-                                                                 mask_fill)
-    attn = torch.softmax(scale * logits, dim=2)
+    stats = stats.to(qa.dtype)
+    z, keep = _mka_logits(q, k, kv_mask, mask_fill)
+    attn = torch.exp((z - stats[0][:, :, None]) - stats[1][:, :, None])
     dv = torch.einsum("blsh,blhd->bshd", attn, ga)
     d_attn = torch.einsum("blhd,bshd->blsh", ga, va)
-    dot = (attn * d_attn).sum(dim=2, keepdim=True)
+    dot = (ga * _acc(out).to(qa.dtype)).sum(-1)[:, :, None]
     dl = (attn * (d_attn - dot) * scale).masked_fill(~keep, 0.0)
     dq = torch.einsum("blsh,bshd->blhd", dl, ka)
     dk = torch.einsum("blsh,blhd->bshd", dl, qa)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def masked_kv_attention_bwd(q, k, v, kv_mask, g, mask_fill: float = -1e8):
+def masked_kv_attention_bwd(q, k, v, kv_mask, g, mask_fill: float = -1e8,
+                            out=None, stats=None):
     """K3: the backward of masked_kv_attention_fwd for the output gradient
-    g [B, L, H, D]. Returns (dq, dk, dv) in the dtypes of q, k, v; a row
-    whose mask is all false gets dv = colsum(g) / S and dq = dk = 0."""
+    g [B, L, H, D], from the forward's output and row statistics
+    (masked_kv_attention_fwd(..., return_stats=True)); without them it
+    runs that forward first. Returns (dq, dk, dv) in the dtypes of q, k, v;
+    a row whose mask is all false gets dv = colsum(g) / S and dq = dk = 0."""
     if q.device.type == "cpu":
-        return masked_kv_attention_bwd_plain(q, k, v, kv_mask, g, mask_fill)
+        return masked_kv_attention_bwd_plain(q, k, v, kv_mask, g, mask_fill,
+                                             out, stats)
     _require_cuda("masked_kv_attention_bwd", q)
     _check_mka_shapes("masked_kv_attention_bwd", q, k, v, kv_mask)
+    _check_fill("masked_kv_attention_bwd", mask_fill)
+    if out is None or stats is None:
+        out, stats = masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill,
+                                             return_stats=True)
     b, l, h, d = q.shape
     s = k.shape[1]
     gf = g.float().contiguous()
-    if gf.shape != q.shape:
-        raise ValueError("masked_kv_attention_bwd: g shape")
+    out = out.float().contiguous()
+    stats = stats.float().contiguous()
+    if gf.shape != q.shape or out.shape != q.shape or \
+            stats.shape != (2, b, l, h):
+        raise ValueError(f"masked_kv_attention_bwd: g and out must be "
+                         f"{tuple(q.shape)}, stats (2, {b}, {l}, {h})")
     mask = kv_mask.to(torch.bool).contiguous()
-    _check_cuda_inputs("masked_kv_attention_bwd", (q, k, v), (mask, gf))
+    _check_cuda_inputs("masked_kv_attention_bwd", (q, k, v),
+                       (mask, gf, out, stats))
     lib = load_library()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    # per-row max, log-denominator and rowsum(attn * g.v), pass 1 -> pass 2
-    stats = torch.empty((3, b, l, h), dtype=torch.float32, device=q.device)
+    dot = torch.empty((b, l, h), dtype=torch.float32, device=q.device)
+    # the dk/dv pass has one CTA per (batch, head, key tile, chunk of the
+    # queries): enough chunks for ~4 CTAs per SM, summed in a fixed order
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_chunks = min(_cdiv(l, _MKA_TILE),
+                   _cdiv(4 * sms, _cdiv(s, _MKA_TILE) * b * h))
+    part = (torch.empty((n_chunks, 2) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if n_chunks > 1 else None)
     with torch.cuda.device(q.device):
         _launch("masked_kv_attention_bwd", lib.gam_masked_kv_attention_bwd,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                gf.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+                gf.data_ptr(), out.data_ptr(), stats[0].data_ptr(),
+                stats[1].data_ptr(), dot.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(),
+                part.data_ptr() if part is not None else None, n_chunks,
                 b, l, s, h,
                 1.0 / math.sqrt(d), mask_fill, _DTYPES[q.dtype],
                 _stream(q.device))
@@ -395,24 +473,32 @@ def masked_kv_attention_bwd(q, k, v, kv_mask, g, mask_fill: float = -1e8):
 
 class _MaskedKVAttention(torch.autograd.Function):
     """Counterpart of the custom_vjp of masked_kv_attention
-    (pallas_attention.py:52,106,212-229): K2 forward, K3 backward."""
+    (pallas_attention.py:52,106,212-229): K2 forward, K3 backward from the
+    forward's output and row statistics."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, mask_fill):
-        ctx.save_for_backward(q, k, v, kv_mask)
+    def forward(ctx, q, k, v, kv_mask, mask_fill, need_grad):
         ctx.mask_fill = mask_fill
-        return masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill)
+        if not need_grad:
+            return masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill)
+        out, stats = masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill,
+                                             return_stats=True)
+        ctx.save_for_backward(q, k, v, kv_mask, out, stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kv_mask = ctx.saved_tensors
+        q, k, v, kv_mask, out, stats = ctx.saved_tensors
         dq, dk, dv = masked_kv_attention_bwd(q, k, v, kv_mask, g,
-                                             ctx.mask_fill)
-        return dq, dk, dv, None, None
+                                             ctx.mask_fill, out, stats)
+        return dq, dk, dv, None, None, None
 
 
 def masked_kv_attention(q, k, v, kv_mask, mask_fill: float = -1e8
                         ) -> torch.Tensor:
     """Differentiable K2 (backward K3), as masked_kv_attention_fwd; the
-    mask gets no gradient."""
-    return _MaskedKVAttention.apply(q, k, v, kv_mask, mask_fill)
+    mask gets no gradient. The forward keeps its row statistics only when
+    a gradient can flow."""
+    need_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    return _MaskedKVAttention.apply(q, k, v, kv_mask, mask_fill, need_grad)

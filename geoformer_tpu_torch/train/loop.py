@@ -9,9 +9,9 @@ step, printed and appended to ``<ckpt_dir>/metrics.jsonl``, and
 for the CPU (``device="cpu"``).
 
 Not ported yet, and raising NotImplementedError when set: resume and orbax
-state checkpoints (so ``ckpt_every`` writes nothing), validation
-(``val_every``), tensorboard and match figures, image directories, sensor
-augmentation and bank refresh.
+state checkpoints (``ckpt_every < steps``, which would ask for one before
+the end), validation (``val_every``), tensorboard and match figures, image
+directories, sensor augmentation and bank refresh.
 """
 
 from __future__ import annotations
@@ -68,7 +68,8 @@ def run_training(
     waiting = {"image_dir": image_dir is not None, "resume": resume,
                "val_every": bool(val_every), "tensorboard": tensorboard,
                "log_figures": log_figures, "sensor_aug": sensor_aug,
-               "bank_refresh": bool(bank_refresh)}
+               "bank_refresh": bool(bank_refresh),
+               "ckpt_every": ckpt_every < steps}
     unported = [k for k, v in waiting.items() if v]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")

@@ -13,9 +13,12 @@ same inputs, 1e-4 (order of the sums). The backwards K3-K5 are held by
 their largest error over the largest magnitude of the plain result: f32 at
 1e-4 (sums of up to L terms in another order, no atomics), and bf16 at
 8e-3, since both sides round an f32 gradient to bf16 (one ulp is 2^-8 of
-the value). The shapes here are small and not multiples of the kernels'
-tiles; chip_smoke.py holds every kernel to its plain version at the main
-path's shapes and inside the model.
+the value). K2's row statistics (max and log-denominator) at 1e-4 abs,
+as its output. The shapes here are small and not multiples of the kernels'
+tiles (K2 and K3 skip 64-key tiles with no kept key, so their tests cover
+prefix masks with 0, 1, 63, 64, 65 and all S keys live); chip_smoke.py
+holds every kernel to its plain version at the main path's shapes and
+inside the model.
 """
 
 import pytest
@@ -163,3 +166,97 @@ def test_autograd_functions_run_the_backward_kernels(dev):
     assert all(n == 1 for n in gk.LAUNCHES.values()), gk.LAUNCHES
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+def _prefix_mask(s, counts):
+    """The GAM's mask shape: masked_select_capacity packs the live keys
+    first, so row i keeps its first counts[i] keys."""
+    mask = torch.zeros((len(counts), s), dtype=torch.bool)
+    for i, c in enumerate(counts):
+        mask[i, :c] = True
+    return mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [70, 1000])
+@pytest.mark.parametrize("kind", ["prefix", "random"])
+def test_mka_kernels_on_tile_edges(dev, dtype, s, kind):
+    """K2 and K3 where key tiles are skipped: live counts around the 64-key
+    tile in prefix masks, or a random mask; L and S not tile multiples."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    b, l = 6, 100
+    if kind == "prefix":
+        mask = _prefix_mask(s, [0, 1, 63, 64, 65, s])
+    else:
+        mask = torch.rand((b, s), generator=gen) < 0.3
+        mask[0] = False
+    mask = mask.to(dev)
+    q = _rand(gen, (b, l, 4, 64), dt, dev)
+    k, v = (_rand(gen, (b, s, 4, 64), dt, dev) for _ in range(2))
+    g = _rand(gen, (b, l, 4, 64), torch.float32, dev)
+    gk.reset_launch_counts()
+    out, stats = gk.masked_kv_attention_fwd(q, k, v, mask, return_stats=True)
+    assert gk.LAUNCHES["masked_kv_attention"] == 1
+    ref, ref_stats = gk.masked_kv_attention_plain(q, k, v, mask,
+                                                  return_stats=True)
+    assert out.dtype == torch.float32 and stats.shape == (2, b, l, 4)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert (stats - ref_stats).abs().max().item() <= 1e-4
+    mean_v = v[0].float().mean(dim=0)
+    assert (out[0] - mean_v[None]).abs().max().item() <= 1e-4
+
+    got = gk.masked_kv_attention_bwd(q, k, v, mask, g, out=out, stats=stats)
+    assert gk.LAUNCHES["masked_kv_attention_bwd"] == 1
+    ref = gk.masked_kv_attention_bwd_plain(q, k, v, mask, g)
+    for a, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert a.dtype == dt, name
+        assert _rel_err(a, r) <= BWD_TOL[dt], name
+    dq, dk, dv = got
+    assert (dq[0] == 0).all() and (dk[0] == 0).all()
+    colmean = g[0].sum(dim=0) / s
+    assert _rel_err(dv[0], colmean.expand_as(dv[0])) <= BWD_TOL[dt]
+    # deterministic: no atomics
+    again = gk.masked_kv_attention_bwd(q, k, v, mask, g, out=out,
+                                       stats=stats)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mka_function_hands_forward_stats_to_backward(dev, dtype):
+    """The differentiable op runs K2 once (keeping its output and row
+    statistics) and K3 once from them; under no_grad K2 keeps none."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(6)
+    s = 70
+    mask = _prefix_mask(s, [0, 40, 64, s]).to(dev)
+    q = _rand(gen, (4, 100, 4, 64), dt, dev).requires_grad_()
+    k, v = (_rand(gen, (4, s, 4, 64), dt, dev).requires_grad_()
+            for _ in range(2))
+    g = _rand(gen, (4, 100, 4, 64), torch.float32, dev)
+    gk.reset_launch_counts()
+    gk.masked_kv_attention(q, k, v, mask).backward(g)
+    assert gk.LAUNCHES["masked_kv_attention"] == 1
+    assert gk.LAUNCHES["masked_kv_attention_bwd"] == 1
+    ref = gk.masked_kv_attention_bwd_plain(q.detach(), k.detach(),
+                                           v.detach(), mask, g)
+    for x, r, name in zip((q, k, v), ref, ("dq", "dk", "dv")):
+        assert _rel_err(x.grad, r) <= BWD_TOL[dt], name
+    with torch.no_grad():
+        out = gk.masked_kv_attention(q, k, v, mask)
+    assert gk.LAUNCHES["masked_kv_attention"] == 2
+    ref_out = gk.masked_kv_attention_plain(q.detach(), k.detach(),
+                                           v.detach(), mask)
+    assert (out - ref_out).abs().max().item() <= 1e-4
+
+
+def test_mka_wrappers_refuse_fills_whose_weights_do_not_vanish(dev):
+    """The kernels skip masked key tiles, exact only where a masked key's
+    weight underflows to 0 (mask_fill <= -1e4)."""
+    q = torch.zeros((1, 8, 1, 64), device=dev)
+    mask = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="mask_fill"):
+        gk.masked_kv_attention_fwd(q, q, q, mask, mask_fill=-1.0)
+    with pytest.raises(ValueError, match="mask_fill"):
+        gk.masked_kv_attention_bwd(q, q, q, mask, q, mask_fill=-1.0)

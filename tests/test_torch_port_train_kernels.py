@@ -165,6 +165,41 @@ def test_autograd_functions_route_through_the_backwards():
     assert not any(gk.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+def test_mka_function_backward_from_forward_stats_matches_pallas(seed):
+    """The differentiable op keeps the forward's output and row statistics
+    and hands them to the backward (as K2 hands them to K3 on the card);
+    through the plain versions its gradients match the Pallas backward in
+    interpret mode."""
+    q, k, v, mask, g = _mka_inputs(seed)
+    qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
+    gk.masked_kv_attention(qt, kt, vt, t(mask)).backward(t(g))
+    ref = _mka_bwd_pallas(*(jnp.asarray(x) for x in (q, k, v, mask, g)),
+                          FILL, 16, interpret=True)
+    for x, r, name in zip((qt, kt, vt), ref, ("dq", "dk", "dv")):
+        assert_close(x.grad, r, 1e-4, 1e-5, name)
+
+
+def test_mka_forward_stats():
+    """Row statistics of the forward: the max m and log-denominator of the
+    masked, scaled logits; a row with no kept key has m = scale * fill and
+    logd = log S exactly, and its probabilities exp((z - m) - logd) = 1/S."""
+    q, k, v, mask, _ = _mka_inputs(7, s=48)
+    out, stats = gk.masked_kv_attention_fwd(t(q), t(k), t(v), t(mask),
+                                            return_stats=True)
+    assert torch.equal(out, gk.masked_kv_attention(t(q), t(k), t(v),
+                                                   t(mask)))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    z = scale * np.where(mask[:, None, :, None],
+                         np.einsum("blhd,bshd->blsh", q, k), FILL)
+    m = z.max(axis=2)
+    logd = np.log(np.exp(z - m[:, :, None]).sum(axis=2))
+    np.testing.assert_allclose(n(stats[0]), m, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(n(stats[1]), logd, rtol=1e-5, atol=1e-5)
+    assert (n(stats[0])[-1] == np.float32(scale * FILL)).all()
+    assert (n(stats[1])[-1] == np.float32(np.log(48))).all()
+
+
 def test_gradcheck_box_window_attention_f64():
     gen = torch.Generator().manual_seed(0)
     grid = (3, 4)

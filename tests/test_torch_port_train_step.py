@@ -340,6 +340,14 @@ def test_run_training_raises_on_options_not_ported(option, tmp_path):
                      **{option: value})
 
 
+def test_run_training_raises_on_state_checkpoints_before_the_end(tmp_path):
+    """A state checkpoint every ckpt_every < steps steps is not ported:
+    asking for one raises instead of silently writing nothing."""
+    with pytest.raises(NotImplementedError, match="ckpt_every"):
+        run_training(steps=2, ckpt_every=1, ckpt_dir=str(tmp_path),
+                     device="cpu")
+
+
 def test_init_state_makes_a_model_on_the_device():
     cfg = port_config(small_config())
     state = init_state(cfg, tcfg.TrainConfig(), seed=3, device="cpu")
