@@ -25,13 +25,18 @@ Phases, each printing its own lines and its seconds:
    the same numbers as phase 2 (library: the backward of
    scaled_dot_product_attention with the same boolean mask); K3 is timed
    from K2's output and row statistics, as the train step runs it, and
-   also on the prefix mask;
+   also on the prefix mask; K4 also at two more centre patterns, a
+   collapsing homography (one key covered by ~4000 queries) and a zoom by
+   2 (4 queries a cell), each against the plain backward, the same bits
+   twice, timed hot and with L2 flushed, with its load (the most queries
+   covering one key);
 5. training path: run_training at the headline recipe (480x640, f32,
    batch 4, random weights, the procedural bank of 256 textures), one
    warm-up step and three timed ones, with the launch counts of K1-K5 read
-   around it; one profiled step; one step at a low coarse threshold where
-   RANSAC finds a homography and the cross layers' gradients go through
-   K4/K5;
+   around it; one profiled step, whose K4 launches are then timed alone
+   on their own inputs, hot and cold, beside their load; one step at a
+   low coarse threshold where RANSAC finds a homography and the cross
+   layers' gradients go through K4/K5;
 6. train parity: at 120x160 in f32 with full widths, one train step
    through the kernels against the same step through their plain versions
    on the same card (loss and every parameter gradient).
@@ -145,19 +150,26 @@ def phase_device():
 
 # ------------------------------------------------------------ phase 2 ------
 
-def _homography_centers(b: int, grid_hw) -> torch.Tensor:
-    """Warped box centres as the GAM makes them, for a known homography,
-    with a few rows pushed fully and partly off the grid."""
+def _warped_centers(H, b: int, grid_hw) -> torch.Tensor:
+    """Box centres as the GAM makes them: each cell's corner pixel warped
+    by H (in pixels, 8 a cell), floored to a destination cell."""
     hg, wg = grid_hw
     scale = 8
-    H = torch.tensor([[0.95, 0.05, 12.0], [-0.04, 0.98, -6.0],
-                      [1e-5, 2e-5, 1.0]], dtype=torch.float64)
+    H = torch.tensor(H, dtype=torch.float64)
     ids = torch.arange(hg * wg)
     pts = torch.stack([(ids % wg) * scale, (ids // wg) * scale,
                        torch.ones_like(ids)], -1).double()
     w = pts @ H.T
     c = torch.floor((w[:, :2] / w[:, 2:]) / scale).to(torch.int32)
-    centers = c[None].repeat(b, 1, 1)
+    return c[None].repeat(b, 1, 1)
+
+
+def _homography_centers(b: int, grid_hw) -> torch.Tensor:
+    """Warped box centres for a known homography near the identity, with a
+    few rows pushed fully and partly off the grid."""
+    hg, wg = grid_hw
+    centers = _warped_centers([[0.95, 0.05, 12.0], [-0.04, 0.98, -6.0],
+                               [1e-5, 2e-5, 1.0]], b, grid_hw)
     centers[:, :40] = torch.tensor([-10, -10], dtype=torch.int32)   # off
     centers[:, 40:80, 0] = -1                                      # partly
     centers[-1, 100:140] = torch.tensor([wg + 1, hg + 1], dtype=torch.int32)
@@ -619,6 +631,84 @@ TRAIN_INLIERS = 512      # the recipe's GAM KV capacity (--gam-max-inliers)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 
 
+def time_cold_ms(fn, iters: int) -> float:
+    """Mean device time of fn() with the L2 cache flushed before each call:
+    CUDA events around each call alone, a 256 MiB write between calls."""
+    flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
+    fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
+# centre patterns of K4's rows besides the homography near the identity
+# (whose keys have <= 36 contributions each): a perspective H that crowds
+# the grid's image into a corner (one key covered by ~4000 queries, as in
+# a train step whose untrained RANSAC fitted a near-degenerate H), and a
+# zoom by 2 (each destination cell the centre of 4 queries)
+COLLAPSED_H = [[1.0, 0.0, 320.0], [0.0, 1.0, 240.0], [0.03, 0.024, 1.0]]
+ZOOM_H = [[0.5, 0.0, 160.0], [0.0, 0.5, 120.0], [0.0, 0.0, 1.0]]
+
+
+def _k4_load(gk, centers, grid_hw) -> dict:
+    """K4's work on these centres: the queries whose box meets the grid,
+    the most contributions of one key (queries whose box covers it), the
+    keys with any, and the pieces of the busiest batch row."""
+    n, _, base = gk.box_dkv_schedule(centers, grid_hw, 2)
+    hg, wg = grid_hw
+    cx, cy = centers[..., 0], centers[..., 1]
+    on = (cx >= -2) & (cx < wg + 2) & (cy >= -2) & (cy < hg + 2)
+    return dict(on_grid=int(on.sum()), max_per_key=int(n.max()),
+                keys_with_any=int((n > 0).sum()),
+                pieces=int(base[:, -1].max()))
+
+
+def _box_dkv_case(gk, q, k, v, g, centers, pattern):
+    """K4 alone on one centre pattern: against the plain backward, the
+    same bits twice, ms hot and with L2 flushed, the bound, the load."""
+    t0 = time.perf_counter()
+    dtype = q.dtype
+    tol = BWD_TOL[dtype]
+    out, lse = gk.box_window_attention_fwd(q, k, v, centers, GRID_HW, 2)
+    gf = g.float()
+    delta = (gf * out.float()).sum(-1)
+
+    def run():
+        return gk.box_window_attention_bwd_dkv(q, k, v, centers, lse, delta,
+                                               gf, GRID_HW, 2)
+
+    got, again = run(), run()
+    ref = gk.box_window_attention_bwd_plain(q, k, v, centers, out, lse, g,
+                                            GRID_HW, 2)[1:]
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    rel = max(_rel_err(a.to(dtype), r) for a, r in zip(got, ref))
+    cells = _box_cells(centers, GRID_HW, 2)
+    # q, k, v in their type; f32 g, lse, delta in, f32 dk, dv out
+    nbytes = (3 * q.numel() * q.element_size() + 3 * q.numel() * 4
+              + centers.numel() * 4 + 2 * lse.numel() * 4)
+    bound, by = _bound(nbytes, 8.0 * HEAD_DIM * HEADS * cells, dtype)
+    ms = time_ms(run, 20)
+    cold_ms = time_cold_ms(run, 10)
+    load = _k4_load(gk, centers, GRID_HW)
+    log("bwd_kernels", name="box_window_attention_bwd_dkv",
+        dtype=str(dtype), centres=pattern, shape=f"q{tuple(q.shape)}",
+        rel_err=f"{rel:.3e}", rel_tol=tol, same_bits_twice=same_bits,
+        kernel_ms=f"{ms:.4f}", kernel_cold_ms=f"{cold_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=by, **load,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    check(rel <= tol, f"K4 {dtype} {pattern}: relative error {rel} > {tol}")
+    check(same_bits, f"K4 {dtype} {pattern}: two calls differ")
+
+
 def _rel_err(got, ref) -> float:
     got, ref = got.float(), ref.float()
     return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)
@@ -775,6 +865,11 @@ def phase_backward_kernels(device):
                 library_ms=lib_ms, bound_ms=bound, bound_by=by)
         check(off_zero, f"K5 {dtype}: off-grid rows got a gradient")
         check(deterministic, f"K4 {dtype}: two calls differ")
+        for pattern, cen in (
+                ("homography", centers),
+                ("collapsed", _warped_centers(COLLAPSED_H, b, GRID_HW)),
+                ("zoom2", _warped_centers(ZOOM_H, b, GRID_HW))):
+            _box_dkv_case(gk, q, k, v, g, cen.to(device), pattern)
         del q, k, v, g, out, ref, dq, dk, dv, again
         torch.cuda.empty_cache()
     return results
@@ -787,8 +882,9 @@ TRAIN_STEPS = 4          # one warm-up step, then three timed
 TRAIN_SEED = 66          # run_training's default seed (weights and data)
 GAM_KERNEL_NAMES = ("mka_fwd_kernel", "box_fwd_kernel", "mka_bwd_dq_kernel",
                     "mka_bwd_dkv_kernel", "mka_bwd_sum_kernel",
-                    "box_bwd_dq_kernel", "box_bucket_kernel",
-                    "box_bwd_dkv_kernel")
+                    "box_bwd_dq_kernel", "box_count_kernel",
+                    "box_plan_kernel", "box_fill_kernel",
+                    "box_bwd_dkv_kernel", "box_dkv_sum_kernel")
 
 
 def headline_config(**match):
@@ -842,6 +938,24 @@ def _profile_step(step_fn, state, batch, lr, gen):
         reach = max(reach, t1)
     return (start.elapsed_time(end), busy_us / 1e3,
             {k: v / 1e3 for k, v in gam_us.items()})
+
+
+@contextlib.contextmanager
+def _keep_k4_inputs(gk):
+    """Within the block, each call of K4's wrapper keeps its arguments (the
+    centres and the tensors K4 reads) in the list it yields."""
+    calls = []
+    wrapped = gk.box_window_attention_bwd_dkv
+
+    def keep(*args):
+        calls.append(args)
+        return wrapped(*args)
+
+    gk.box_window_attention_bwd_dkv = keep
+    try:
+        yield calls
+    finally:
+        gk.box_window_attention_bwd_dkv = wrapped
 
 
 def phase_training(device):
@@ -920,8 +1034,9 @@ def phase_training(device):
     base = torch.from_numpy(native_textures_mixed(
         TRAIN_B, *TRAIN_HW, seed=7)).to(device)
     batch = make_pair_batch(base, gen)
-    window_ms, busy_ms, gam_by_kernel = _profile_step(step_fn, state, batch,
-                                                      1e-5, gen)
+    with _keep_k4_inputs(gk) as k4_calls:
+        window_ms, busy_ms, gam_by_kernel = _profile_step(
+            step_fn, state, batch, 1e-5, gen)
     gam_ms = sum(gam_by_kernel.values())
     check(0 < busy_ms <= window_ms * 1.01,
           f"profiled device activity {busy_ms} ms in a {window_ms} ms step")
@@ -932,6 +1047,18 @@ def phase_training(device):
         by_kernel={k: f"{v:.3f}" for k, v in gam_by_kernel.items()},
         gam_kernels_share_of_step=f"{gam_ms / window_ms:.4f}",
         gam_kernels_share_of_busy=f"{gam_ms / busy_ms:.4f}")
+    check(len(k4_calls) == 4, f"the profiled step called K4 {len(k4_calls)} "
+          "times, expected 4")
+    for i, args in enumerate(k4_calls):
+        # K4 alone on the step's inputs, after the step
+        centers = args[3]
+        ms = time_ms(lambda: gk.box_window_attention_bwd_dkv(*args), 20)
+        cold_ms = time_cold_ms(
+            lambda: gk.box_window_attention_bwd_dkv(*args), 10)
+        log("training_profile_k4", launch=i, kernel_ms_alone=f"{ms:.4f}",
+            kernel_cold_ms_alone=f"{cold_ms:.4f}",
+            **_k4_load(gk, centers, tuple(args[7])))
+    del k4_calls
 
     # one step at LIVE_THR: RANSAC finds a homography on the matches
     state.model.config = headline_config(thr=LIVE_THR)

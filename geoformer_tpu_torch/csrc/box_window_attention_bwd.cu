@@ -23,13 +23,34 @@
 //
 // K4 (dk/dv) is the scatter direction: the queries that touch key cell s are
 // those whose centre lies within r of s, an irregular set under a
-// homography. Design: no atomics on the gradients. A pre-pass (one warp per
-// batch row) counting-sorts the queries by centre cell over the grid widened
-// by r on each side (centres off that widened grid touch no cell and are
-// dropped); ranks come from __match_any_sync in query order, so the sort is
-// stable. Then one warp per (batch, key, head) reads the (2r+1)^2 buckets
-// around its cell in a fixed order, each bucket in query order, and sums
-// without atomics: the result is the same from run to run.
+// homography, and a collapsing one (an untrained model's RANSAC fit, a zoom)
+// crowds thousands of queries onto one key. So the work is cut into pieces
+// of at most kPiece contributions, and a launch's time follows the total
+// work, not its busiest key. No atomics on the gradients. Five launches:
+//
+// 1. box_count_kernel, one thread per query: its bucket, the query's centre
+//    cell on the grid widened by r on each side (-1 off that widened grid:
+//    its box misses the grid), and the buckets' counts (integer atomics,
+//    the same counts in any order).
+// 2. box_plan_kernel, one block per batch row: the counts' exclusive scan
+//    (bucket starts of a counting sort); per key s its count n_s (its box's
+//    2r+1 runs of 2r+1 adjacent buckets), its pieces P_s = max(1, ceil(n_s
+//    / kPiece)), their numbering (a scan over the keys) and a piece -> key
+//    map.
+// 3. box_fill_kernel, one thread per query: its place in the sorted order
+//    is its bucket's start plus the earlier queries of its bucket, so the
+//    order within a bucket is the query order and the sums' order, hence
+//    the bits, depend on the centres alone.
+// 4. box_bwd_dkv_kernel, one warp per (batch, piece, 4 heads), 8 lanes a
+//    head, 8 channels a lane: each lane finds one of the piece's queries,
+//    then the warp takes them in the fixed (dy, dx, query) order, kUnroll
+//    row loads in flight, 3 shuffle levels a product. A key with one piece
+//    writes dk/dv; the pieces of a key with more write partial sums, and
+// 5. box_dkv_sum_kernel sums those in piece order.
+//
+// The launch is sized by the most pieces any centres can give, S +
+// ceil((2r+1)^2 L / kPiece) per batch row, so the host reads nothing; the
+// surplus warps exit.
 
 #include "gam_common.cuh"
 
@@ -92,119 +113,333 @@ __device__ __forceinline__ int bucket_of(int cx, int cy, int grid_h,
   return ey * ew + ex;
 }
 
-// One warp per batch row. starts: [B, n_buckets + 1] (bucket j's queries are
-// order[starts[j] .. starts[j + 1])); order: [B, len_q]. Shared memory holds
-// one int per bucket.
-__global__ void __launch_bounds__(32)
-box_bucket_kernel(const int* __restrict__ centers, int* __restrict__ starts,
-                  int* __restrict__ order, int len_q, int grid_h, int grid_w,
-                  int radius, int n_buckets) {
-  extern __shared__ int cursor[];
-  const int lane = threadIdx.x;
-  const long long b = blockIdx.x;
-  const int* cb = centers + 2 * b * len_q;
-  int* sb = starts + b * (long long)(n_buckets + 1);
-  int* ob = order + b * (long long)len_q;
-  const unsigned lower = (1u << lane) - 1u;
+constexpr int kPiece = 64;  // contributions a warp of K4 takes at most
+constexpr int kPlanThreads = 1024;
+constexpr int kFillThreads = 256;
 
-  for (int j = lane; j < n_buckets; j += 32) cursor[j] = 0;
-  __syncwarp();
-  // count: the lowest lane of each group of equal buckets adds the group
-  for (int l0 = 0; l0 < len_q; l0 += 32) {
-    const int l = l0 + lane;
-    const int bk = l < len_q
-        ? bucket_of(cb[2 * l], cb[2 * l + 1], grid_h, grid_w, radius) : -1;
-    const unsigned peers = __match_any_sync(gam::kFullMask, bk);
-    if (bk >= 0 && (peers & lower) == 0) cursor[bk] += __popc(peers);
-    __syncwarp();
-  }
-  // exclusive scan: each lane scans a contiguous segment of the buckets
-  const int seg = (n_buckets + 31) / 32;
-  const int j0 = min(lane * seg, n_buckets), j1 = min(j0 + seg, n_buckets);
-  int total = 0;
-  for (int j = j0; j < j1; ++j) total += cursor[j];
-  int incl = total;
+// In-place exclusive scan of a[0..n) in shared memory by the whole block;
+// returns the total. warp_tot: 32 ints of shared memory.
+__device__ int block_exclusive_scan(int* a, int n, int* warp_tot) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
+  const int seg = (n + nt - 1) / nt;
+  const int j0 = min(tid * seg, n), j1 = min(j0 + seg, n);
+  int sum = 0;
+  for (int j = j0; j < j1; ++j) sum += a[j];
+  int incl = sum;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int up = __shfl_up_sync(gam::kFullMask, incl, o);
     if (lane >= o) incl += up;
   }
-  int run = incl - total;
-  __syncwarp();
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int x = lane < n_warps ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(gam::kFullMask, x, o);
+      if (lane >= o) x += up;
+    }
+    warp_tot[lane] = x;
+  }
+  __syncthreads();
+  int run = (warp > 0 ? warp_tot[warp - 1] : 0) + incl - sum;
   for (int j = j0; j < j1; ++j) {
-    const int c = cursor[j];
-    cursor[j] = run;
-    sb[j] = run;
+    const int c = a[j];
+    a[j] = run;
     run += c;
   }
-  if (lane == 31) sb[n_buckets] = incl;
-  __syncwarp();
-  // fill in query order: rank within the group of equal buckets
-  for (int l0 = 0; l0 < len_q; l0 += 32) {
-    const int l = l0 + lane;
-    const int bk = l < len_q
-        ? bucket_of(cb[2 * l], cb[2 * l + 1], grid_h, grid_w, radius) : -1;
-    const unsigned peers = __match_any_sync(gam::kFullMask, bk);
-    int base = 0;
-    if (bk >= 0) {
-      base = cursor[bk];
-      ob[base + __popc(peers & lower)] = l;
-    }
-    __syncwarp();
-    if (bk >= 0 && (peers & lower) == 0) cursor[bk] = base + __popc(peers);
-    __syncwarp();
-  }
+  const int total = warp_tot[n_warps - 1];
+  __syncthreads();
+  return total;
 }
 
+// One thread per (batch, query), grid (L / kFillThreads, B): the query's
+// bucket into bucket [B, len_q], and its count into the bucket's counts
+// [B, n_buckets + 1] and into its block's chunk_counts [B, gridDim.x,
+// n_buckets] (both zeroed before; integer atomics give the same counts in
+// any order).
+__global__ void __launch_bounds__(kFillThreads)
+box_count_kernel(const int* __restrict__ centers, int* __restrict__ bucket,
+                 int* __restrict__ counts, int* __restrict__ chunk_counts,
+                 int len_q, int grid_h, int grid_w, int radius,
+                 int n_buckets) {
+  const int l = blockIdx.x * kFillThreads + threadIdx.x;
+  const long long b = blockIdx.y;
+  if (l >= len_q) return;
+  const long long bl = b * len_q + l;
+  const int bk = bucket_of(centers[2 * bl], centers[2 * bl + 1], grid_h,
+                           grid_w, radius);
+  bucket[bl] = bk;
+  if (bk < 0) return;
+  atomicAdd(&counts[b * (n_buckets + 1) + bk], 1);
+  atomicAdd(&chunk_counts[(b * gridDim.x + blockIdx.x) * n_buckets + bk], 1);
+}
+
+// One block per batch row: the counts in starts [B, n_buckets + 1] become
+// bucket starts (bucket j's queries will be order[starts[j] ..
+// starts[j + 1])); then per key s its count n_s (the 2r+1 runs of 2r+1
+// adjacent buckets of its box), its pieces P_s = max(1, ceil(n_s /
+// kPiece)), piece_base [B, len_kv + 1] (key s has pieces piece_base[s] ..
+// piece_base[s + 1]; the last entry is the row's number of pieces) and
+// piece_key [B, max_pieces]. Shared memory: n_buckets + 1 + len_kv + 32
+// ints.
+__global__ void __launch_bounds__(kPlanThreads)
+box_plan_kernel(int* __restrict__ starts, int* __restrict__ piece_base,
+                int* __restrict__ piece_key, int len_kv, int grid_w,
+                int radius, int n_buckets, int max_pieces) {
+  extern __shared__ int smem[];
+  int* cnt = smem;
+  int* pcnt = cnt + n_buckets + 1;
+  int* warp_tot = pcnt + len_kv;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long b = blockIdx.x;
+  int* sb = starts + b * (n_buckets + 1);
+
+  for (int j = tid; j < n_buckets; j += nt) cnt[j] = sb[j];
+  __syncthreads();
+  const int on_grid = block_exclusive_scan(cnt, n_buckets, warp_tot);
+  for (int j = tid; j < n_buckets; j += nt) sb[j] = cnt[j];
+  if (tid == 0) {
+    cnt[n_buckets] = on_grid;
+    sb[n_buckets] = on_grid;
+  }
+  __syncthreads();
+  const int ew = grid_w + 2 * radius, w = 2 * radius + 1;
+  for (int s = tid; s < len_kv; s += nt) {
+    const int sx = s % grid_w, sy = s / grid_w;
+    int n = 0;
+    for (int i = 0; i < w; ++i) {
+      const int b0 = (sy + i) * ew + sx;
+      n += cnt[b0 + w] - cnt[b0];
+    }
+    pcnt[s] = max(1, (n + kPiece - 1) / kPiece);
+  }
+  __syncthreads();
+  const int n_pieces = block_exclusive_scan(pcnt, len_kv, warp_tot);
+  int* pb = piece_base + b * (long long)(len_kv + 1);
+  int* pk = piece_key + b * (long long)max_pieces;
+  for (int s = tid; s < len_kv; s += nt) {
+    const int end = s + 1 < len_kv ? pcnt[s + 1] : n_pieces;
+    pb[s] = pcnt[s];
+    for (int p = pcnt[s]; p < end; ++p) pk[p] = s;
+  }
+  if (tid == 0) pb[len_kv] = n_pieces;
+}
+
+// One thread per (batch, query), grid (L / kFillThreads, B): the query's
+// place in order [B, len_q] is its bucket's start plus the earlier queries
+// of its bucket (those of the earlier blocks from chunk_counts, those of its
+// own block counted in shared memory), so the order within a bucket is the
+// query order.
+__global__ void __launch_bounds__(kFillThreads)
+box_fill_kernel(const int* __restrict__ bucket,
+                const int* __restrict__ chunk_counts,
+                const int* __restrict__ starts, int* __restrict__ order,
+                int len_q, int n_buckets) {
+  __shared__ int sbk[kFillThreads];
+  const int tid = threadIdx.x;
+  const int l = blockIdx.x * kFillThreads + tid;
+  const long long b = blockIdx.y;
+  sbk[tid] = l < len_q ? bucket[b * len_q + l] : -1;
+  __syncthreads();
+  const int bk = sbk[tid];
+  if (bk < 0) return;
+  int rank = 0;
+  const int* cc = chunk_counts + b * gridDim.x * (long long)n_buckets + bk;
+  for (int c = 0; c < (int)blockIdx.x; ++c) rank += cc[c * (long long)n_buckets];
+  for (int j = 0; j < tid; ++j) rank += sbk[j] == bk;
+  order[b * len_q + starts[b * (n_buckets + 1) + bk] + rank] = l;
+}
+
+// Eight consecutive elements widened to f32 (32- or 16-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 c = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+constexpr int kGroupHeads = 4;  // heads a warp of K4 takes, 8 lanes each
+constexpr int kUnroll = 4;      // contributions in flight in a warp of K4
+
 template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 3)
 box_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ g,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
                    const int* __restrict__ starts,
-                   const int* __restrict__ order, float* __restrict__ dk,
+                   const int* __restrict__ order,
+                   const int* __restrict__ piece_base,
+                   const int* __restrict__ piece_key,
+                   float* __restrict__ part, float* __restrict__ dk,
                    float* __restrict__ dv, int batch, int len_q, int len_kv,
                    int heads, int grid_w, int radius, int n_buckets,
-                   float scale) {
+                   int max_pieces, float scale) {
+  const int n_groups = (heads + kGroupHeads - 1) / kGroupHeads;
   const long long row =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= (long long)batch * len_kv * heads) return;
-  const int h = (int)(row % heads);
-  const long long bs = row / heads;  // b * len_kv + s
-  const long long b = bs / len_kv;
-  const int s = (int)(bs % len_kv);
+  if (row >= (long long)batch * max_pieces * n_groups) return;
+  const long long bp = row / n_groups;  // b * max_pieces + piece
+  const long long b = bp / max_pieces;
+  const int p = (int)(bp % max_pieces);
+  const int* pb = piece_base + b * (long long)(len_kv + 1);
+  // both loads before the exit; a surplus piece's key is never used
+  const int n_pieces = pb[len_kv];
+  const int s = piece_key[bp];
+  if (p >= n_pieces) return;
   const int sx = s % grid_w, sy = s / grid_w;
-  const int ew = grid_w + 2 * radius;
+  const int ew = grid_w + 2 * radius, w = 2 * radius + 1;
   const int* sb = starts + b * (long long)(n_buckets + 1);
   const int* ob = order + b * (long long)len_q;
 
-  const float2 kv = gam::load2(k + row * kHeadDim + 2 * lane);
-  const float2 vv = gam::load2(v + row * kHeadDim + 2 * lane);
-  float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-  // centres (sx + dx, sy + dy), |dx|, |dy| <= r, all inside the widened grid
-  for (int dy = -radius; dy <= radius; ++dy) {
-    for (int dx = -radius; dx <= radius; ++dx) {
-      const int bk = (sy + dy + radius) * ew + (sx + dx + radius);
-      const int end = sb[bk + 1];
-      for (int i = sb[bk]; i < end; ++i) {
-        const long long qrow = (b * len_q + ob[i]) * heads + h;
-        const float2 qv = gam::load2(q + qrow * kHeadDim + 2 * lane);
-        const float2 gv = gam::load2(g + qrow * kHeadDim + 2 * lane);
-        const float qk = gam::warp_sum(qv.x * kv.x + qv.y * kv.y);
-        const float dp = gam::warp_sum(gv.x * vv.x + gv.y * vv.y);
-        const float p = expf(scale * qk - lse[qrow]);
-        const float dl = p * (dp - delta[qrow]) * scale;
-        v0 += p * gv.x;
-        v1 += p * gv.y;
-        k0 += dl * qv.x;
-        k1 += dl * qv.y;
+  // lane i < w: the run of box row i (its w buckets are adjacent)
+  int run_beg = 0, run_len = 0;
+  if (lane < w) {
+    const int b0 = (sy + lane) * ew + sx;
+    run_beg = sb[b0];
+    run_len = sb[b0 + w] - run_beg;
+  }
+  // 8 lanes a head, a lane holds channels 8 sub .. 8 sub + 7
+  const int h = (int)(row % n_groups) * kGroupHeads + (lane >> 3);
+  const int hc = min(h, heads - 1);  // a group past the last head idles
+  const int sub = lane & 7;
+  const long long krow = (b * len_kv + s) * heads + hc;
+  float kk[8], vv[8], ak[8], av[8];
+  load8(k + krow * kHeadDim + 8 * sub, kk);
+  load8(v + krow * kHeadDim + 8 * sub, vv);
+  const int first = pb[s];
+  const bool alone = pb[s + 1] - first == 1;
+
+  int incl = run_len;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(gam::kFullMask, incl, o);
+    if (lane >= o) incl += up;
+  }
+  const int n_key = __shfl_sync(gam::kFullMask, incl, w - 1);
+  const int c0 = (p - first) * kPiece;
+  const int cnt = min(kPiece, n_key - c0);
+  // the piece's contribution c0 + 32 m + lane: its run, then its query
+  int my_l[kPiece / 32];
+#pragma unroll
+  for (int m = 0; m < kPiece / 32; ++m) {
+    const int c = c0 + 32 * m + lane;
+    int run = 0;
+    for (int i = 0; i < w; ++i)
+      run += c >= __shfl_sync(gam::kFullMask, incl, i) ? 1 : 0;
+    const int rb = __shfl_sync(gam::kFullMask, run_beg, run);
+    const int rx = __shfl_sync(gam::kFullMask, incl - run_len, run);
+    my_l[m] = 32 * m + lane < cnt ? ob[rb + c - rx] : 0;
+  }
+
+  // this lane's head and channels of the batch row's q and g, lse and
+  // delta; a query's offset in the row fits 32 bits (the launch checks)
+  const long long qbase = b * len_q * heads + hc;
+  const T* qb = q + qbase * kHeadDim + 8 * sub;
+  const float* gb = g + qbase * kHeadDim + 8 * sub;
+  const float* lb = lse + qbase;
+  const float* db = delta + qbase;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ak[i] = av[i] = 0.f;
+#pragma unroll
+  for (int m = 0; m < kPiece / 32; ++m) {
+    const int n_m = min(32, cnt - 32 * m);
+    for (int t0 = 0; t0 < n_m; t0 += kUnroll) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int t = t0 + u;
+        const int qrow = __shfl_sync(gam::kFullMask, my_l[m], t) * heads;
+        float qv[8], gv[8];
+        load8(qb + qrow * kHeadDim, qv);
+        load8(gb + qrow * kHeadDim, gv);
+        float qk = 0.f, dp = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          qk += qv[i] * kk[i];
+          dp += gv[i] * vv[i];
+        }
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) {
+          qk += __shfl_xor_sync(gam::kFullMask, qk, o);
+          dp += __shfl_xor_sync(gam::kFullMask, dp, o);
+        }
+        const bool valid = t < n_m;
+        const float pr = valid ? expf(scale * qk - lb[qrow]) : 0.f;
+        const float dl = valid ? pr * (dp - db[qrow]) * scale : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          av[i] += pr * gv[i];
+          ak[i] += dl * qv[i];
+        }
       }
     }
   }
-  gam::store2(dk + row * kHeadDim + 2 * lane, k0, k1);
-  gam::store2(dv + row * kHeadDim + 2 * lane, v0, v1);
+  if (h < heads) {
+    float* dkp = alone ? dk + krow * kHeadDim
+                       : part + (bp * heads + h) * (2 * kHeadDim);
+    float* dvp = alone ? dv + krow * kHeadDim : dkp + kHeadDim;
+    store8(dkp + 8 * sub, ak);
+    store8(dvp + 8 * sub, av);
+  }
+}
+
+// One warp per (batch, key, group of 4 heads) of a key with more than one
+// piece, lanes as in box_bwd_dkv_kernel: the sum of its pieces' partials,
+// in piece order.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+box_dkv_sum_kernel(const float* __restrict__ part,
+                   const int* __restrict__ piece_base,
+                   float* __restrict__ dk, float* __restrict__ dv, int batch,
+                   int len_kv, int heads, int max_pieces) {
+  const int n_groups = (heads + kGroupHeads - 1) / kGroupHeads;
+  const long long row =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)batch * len_kv * n_groups) return;
+  const long long bs = row / n_groups;  // b * len_kv + s
+  const long long b = bs / len_kv;
+  const int s = (int)(bs % len_kv);
+  const int* pb = piece_base + b * (long long)(len_kv + 1);
+  const int first = pb[s], last = pb[s + 1];
+  const int h = (int)(row % n_groups) * kGroupHeads + (lane >> 3);
+  if (last - first < 2 || h >= heads) return;
+  const int sub = lane & 7;
+  float ak[8], av[8], xk[8], xv[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ak[i] = av[i] = 0.f;
+  const float* src =
+      part + ((b * max_pieces + first) * heads + h) * (2 * kHeadDim) +
+      8 * sub;
+  for (int p = first; p < last; ++p, src += heads * 2 * kHeadDim) {
+    load8(src, xk);
+    load8(src + kHeadDim, xv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ak[i] += xk[i];
+      av[i] += xv[i];
+    }
+  }
+  const long long krow = (bs * heads + h) * kHeadDim + 8 * sub;
+  store8(dk + krow, ak);
+  store8(dv + krow, av);
 }
 
 unsigned blocks_for(long long rows) {
@@ -230,28 +465,65 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
 template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                const void* centers, const void* lse, const void* delta,
-               void* starts, void* order, void* dk, void* dv, int batch,
+               void* starts, void* chunk_counts, void* bucket, void* order,
+               void* piece_base, void* piece_key, void* part, void* dk,
+               void* dv, int batch,
                int len_q, int len_kv, int heads, int grid_h, int grid_w,
-               int radius, float scale, cudaStream_t stream) {
+               int radius, int max_pieces, float scale, cudaStream_t stream) {
+  const int w = 2 * radius + 1;
   const int n_buckets = (grid_h + 2 * radius) * (grid_w + 2 * radius);
-  const size_t smem = (size_t)n_buckets * sizeof(int);
+  // a warp holds a key's 2r+1 runs; a query's offset in its batch row
+  // fits 32 bits; the scratch holds the most pieces any centres give
+  if (radius < 0 || w > 31 ||
+      (long long)len_q * heads * kHeadDim >= (1LL << 31) ||
+      max_pieces < len_kv + ((long long)w * w * len_q + kPiece - 1) / kPiece)
+    return (int)cudaErrorInvalidValue;
+  const size_t plan_smem = ((size_t)n_buckets + 1 + len_kv + 32) * sizeof(int);
+  const int n_chunks = (len_q + kFillThreads - 1) / kFillThreads;
   cudaError_t err = cudaFuncSetAttribute(
-      box_bucket_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      box_plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)plan_smem);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(starts, 0,
+                          (size_t)batch * (n_buckets + 1) * sizeof(int),
+                          stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(
+        chunk_counts, 0,
+        (size_t)batch * n_chunks * n_buckets * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
-  box_bucket_kernel<<<batch, 32, smem, stream>>>(
-      static_cast<const int*>(centers), static_cast<int*>(starts),
-      static_cast<int*>(order), len_q, grid_h, grid_w, radius, n_buckets);
+  const dim3 per_query(n_chunks, batch);
+  box_count_kernel<<<per_query, kFillThreads, 0, stream>>>(
+      static_cast<const int*>(centers), static_cast<int*>(bucket),
+      static_cast<int*>(starts), static_cast<int*>(chunk_counts), len_q,
+      grid_h, grid_w, radius, n_buckets);
+  box_plan_kernel<<<batch, kPlanThreads, plan_smem, stream>>>(
+      static_cast<int*>(starts), static_cast<int*>(piece_base),
+      static_cast<int*>(piece_key), len_kv, grid_w, radius, n_buckets,
+      max_pieces);
+  box_fill_kernel<<<per_query, kFillThreads, 0, stream>>>(
+      static_cast<const int*>(bucket), static_cast<const int*>(chunk_counts),
+      static_cast<const int*>(starts), static_cast<int*>(order), len_q,
+      n_buckets);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  box_bwd_dkv_kernel<T><<<blocks_for((long long)batch * len_kv * heads),
-                          kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(starts), static_cast<const int*>(order),
-      static_cast<float*>(dk), static_cast<float*>(dv), batch, len_q, len_kv,
-      heads, grid_w, radius, n_buckets, scale);
+  const int n_groups = (heads + kGroupHeads - 1) / kGroupHeads;
+  box_bwd_dkv_kernel<T>
+      <<<blocks_for((long long)batch * max_pieces * n_groups),
+         kWarpsPerBlock * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const float*>(g),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const int*>(starts), static_cast<const int*>(order),
+          static_cast<const int*>(piece_base),
+          static_cast<const int*>(piece_key), static_cast<float*>(part),
+          static_cast<float*>(dk), static_cast<float*>(dv), batch, len_q,
+          len_kv, heads, grid_w, radius, n_buckets, max_pieces, scale);
+  box_dkv_sum_kernel<<<blocks_for((long long)batch * len_kv * n_groups),
+                       kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(piece_base),
+      static_cast<float*>(dk), static_cast<float*>(dv), batch, len_kv, heads,
+      max_pieces);
   return (int)cudaGetLastError();
 }
 
@@ -275,21 +547,27 @@ extern "C" int gam_box_window_attention_bwd_dq(
                           len_kv, heads, grid_h, grid_w, radius, scale, s);
 }
 
-// K4. Inputs as K5; scratch starts: int32 [B, (grid_h + 2r)(grid_w + 2r) +
-// 1] and order: int32 [B, L]. Writes f32 dk, dv [B, S, H, 64]. Returns the
+// K4. Inputs as K5; scratch: with n_buckets = (grid_h + 2r)(grid_w + 2r),
+// int32 starts [B, n_buckets + 1], chunk_counts [B, ceil(L / 256),
+// n_buckets], bucket and order [B, L], piece_base [B, S + 1], piece_key [B,
+// max_pieces] and f32 part [B, max_pieces, H, 2, 64], where max_pieces >= S
+// + ceil((2r+1)^2 L / 64). Writes f32 dk, dv [B, S, H, 64]. Returns the
 // first launch error, or 0.
 extern "C" int gam_box_window_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* g,
     const void* centers, const void* lse, const void* delta, void* starts,
-    void* order, void* dk, void* dv, int batch, int len_q, int len_kv,
-    int heads, int grid_h, int grid_w, int radius, float scale, int is_bf16,
-    void* stream) {
+    void* chunk_counts, void* bucket, void* order, void* piece_base,
+    void* piece_key, void* part, void* dk, void* dv, int batch, int len_q,
+    int len_kv, int heads, int grid_h, int grid_w, int radius,
+    int max_pieces, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, g, centers, lse, delta, starts,
-                                     order, dk, dv, batch, len_q, len_kv,
-                                     heads, grid_h, grid_w, radius, scale, s);
-  return launch_dkv<float>(q, k, v, g, centers, lse, delta, starts, order,
-                           dk, dv, batch, len_q, len_kv, heads, grid_h,
-                           grid_w, radius, scale, s);
+    return launch_dkv<__nv_bfloat16>(
+        q, k, v, g, centers, lse, delta, starts, chunk_counts, bucket, order,
+        piece_base, piece_key, part, dk, dv, batch, len_q, len_kv, heads,
+        grid_h, grid_w, radius, max_pieces, scale, s);
+  return launch_dkv<float>(
+      q, k, v, g, centers, lse, delta, starts, chunk_counts, bucket, order,
+      piece_base, piece_key, part, dk, dv, batch, len_q, len_kv, heads,
+      grid_h, grid_w, radius, max_pieces, scale, s);
 }

@@ -40,8 +40,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
         _P),
     "gam_box_window_attention_bwd_dkv": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _I, _F, _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 

@@ -205,8 +205,9 @@ def box_window_attention_bwd_plain(q, k, v, centers, out, lse, g, grid_hw,
 
 
 def _box_bwd_launch(name, fn, q, k, v, centers, gf, lse, delta, outs,
-                    scratch, grid_hw, radius):
-    """Checks the inputs of K4/K5 and launches one of them."""
+                    scratch, grid_hw, radius, ints=()):
+    """Checks the inputs of K4/K5 and launches one of them; ints follow
+    the radius in the kernel's arguments."""
     _require_cuda(name, q)
     _check_box_shapes(name, q, k, v, centers, grid_hw)
     if gf.shape != q.shape or gf.dtype != torch.float32 or \
@@ -220,8 +221,53 @@ def _box_bwd_launch(name, fn, q, k, v, centers, gf, lse, delta, outs,
         _launch(name, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 gf.data_ptr(), centers.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), *(t.data_ptr() for t in scratch + outs),
-                b, l, k.shape[1], h, hd, wd, radius, 1.0 / math.sqrt(d),
+                b, l, k.shape[1], h, hd, wd, radius, *ints,
+                1.0 / math.sqrt(d),
                 _DTYPES[q.dtype], _stream(q.device))
+
+
+# K4 splits each key's list of contributions (the queries whose box covers
+# it) into pieces of at most this many, one warp each, and ranks its
+# queries in chunks of _BOX_CHUNK (csrc/box_window_attention_bwd.cu:
+# kPiece, kFillThreads).
+BOX_PIECE = 64
+_BOX_CHUNK = 256
+
+
+def box_dkv_max_pieces(len_q: int, len_kv: int, radius: int) -> int:
+    """Most pieces K4 can make of one batch row, whatever the centres:
+    sum_s max(1, ceil(n_s / C)) <= S + sum_s n_s / C <= S + (2r+1)^2 L / C.
+    It sizes K4's grid and scratch without reading the centres."""
+    return len_kv + _cdiv((2 * radius + 1) ** 2 * len_q, BOX_PIECE)
+
+
+def box_dkv_schedule(centers, grid_hw, radius: int = 2):
+    """K4's split of the work, by torch ops on the centres' device. Per key
+    s: n_s, the number of queries whose box covers it, and its pieces
+    P_s = max(1, ceil(n_s / C)); and the exclusive scan of P_s over each
+    batch row's keys, whose last column is the row's number of pieces.
+    Returns (n [B, S], pieces [B, S], base [B, S + 1]), all int64."""
+    hg, wg = grid_hw
+    r, w = radius, 2 * radius + 1
+    b = centers.shape[0]
+    ew, eh = wg + 2 * r, hg + 2 * r
+    # bucket of each centre on the grid widened by r on each side
+    ex = centers[..., 0].long() + r
+    ey = centers[..., 1].long() + r
+    ok = (ex >= 0) & (ex < ew) & (ey >= 0) & (ey < eh)
+    bk = torch.where(ok, ey * ew + ex, torch.zeros_like(ex))
+    counts = torch.zeros((b, eh * ew), dtype=torch.long,
+                         device=centers.device)
+    counts.scatter_add_(1, bk, ok.long())
+    # key (sy, sx) sums the buckets of rows sy..sy+2r, columns sx..sx+2r
+    cs = torch.zeros((b, eh + 1, ew + 1), dtype=torch.long,
+                     device=centers.device)
+    cs[:, 1:, 1:] = counts.view(b, eh, ew).cumsum(1).cumsum(2)
+    n = (cs[:, w:, w:] - cs[:, :-w, w:] - cs[:, w:, :-w]
+         + cs[:, :-w, :-w]).reshape(b, hg * wg)
+    pieces = torch.clamp(_cdiv(n, BOX_PIECE), min=1)
+    base = torch.cat([torch.zeros_like(pieces[:, :1]), pieces.cumsum(1)], 1)
+    return n, pieces, base
 
 
 def box_window_attention_bwd_dq(q, k, v, centers, lse, delta, gf, grid_hw,
@@ -240,19 +286,31 @@ def box_window_attention_bwd_dq(q, k, v, centers, lse, delta, gf, grid_hw,
 def box_window_attention_bwd_dkv(q, k, v, centers, lse, delta, gf, grid_hw,
                                  radius: int = 2):
     """K4: f32 (dk, dv) [B, S, H, D] of box-window attention, inputs as
-    box_window_attention_bwd_dq. Scratch: the queries bucketed by centre
-    cell (int32 starts [B, (Hg + 2r)(Wg + 2r) + 1] and order [B, L])."""
+    box_window_attention_bwd_dq. Scratch, sized without reading the
+    centres (P = box_dkv_max_pieces(L, S, r), n = (Hg + 2r)(Wg + 2r)
+    buckets of centre cells): the plan of the work (int32 bucket starts
+    [B, n + 1], per-chunk bucket counts [B, ceil(L / 256), n], each
+    query's bucket and the queries' order [B, L], piece_base [B, S + 1],
+    piece_key [B, P]) and the pieces' partial sums (f32 [B, P, H, 2, D])."""
     b, l = q.shape[:2]
+    s, h = k.shape[1:3]
     hd, wd = grid_hw
+    n_buckets = (hd + 2 * radius) * (wd + 2 * radius)
+    pieces = box_dkv_max_pieces(l, s, radius)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    starts = torch.empty((b, (hd + 2 * radius) * (wd + 2 * radius) + 1),
-                         dtype=torch.int32, device=q.device)
-    order = torch.empty((b, l), dtype=torch.int32, device=q.device)
+    i32 = dict(dtype=torch.int32, device=q.device)
+    scratch = [
+        torch.empty((b, n_buckets + 1), **i32),
+        torch.empty((b, _cdiv(l, _BOX_CHUNK), n_buckets), **i32),
+        torch.empty((b, l), **i32), torch.empty((b, l), **i32),
+        torch.empty((b, s + 1), **i32), torch.empty((b, pieces), **i32),
+        torch.empty((b, pieces, h, 2, q.shape[3]), dtype=torch.float32,
+                    device=q.device)]
     _box_bwd_launch("box_window_attention_bwd_dkv",
                     load_library().gam_box_window_attention_bwd_dkv, q, k, v,
-                    centers, gf, lse, delta, [dk, dv], [starts, order],
-                    grid_hw, radius)
+                    centers, gf, lse, delta, [dk, dv], scratch, grid_hw,
+                    radius, ints=(pieces,))
     return dk, dv
 
 

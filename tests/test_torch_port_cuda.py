@@ -260,3 +260,82 @@ def test_mka_wrappers_refuse_fills_whose_weights_do_not_vanish(dev):
         gk.masked_kv_attention_fwd(q, q, q, mask, mask_fill=-1.0)
     with pytest.raises(ValueError, match="mask_fill"):
         gk.masked_kv_attention_bwd(q, q, q, mask, q, mask_fill=-1.0)
+
+
+def _dkv_centres(case, gen, hg, wg, l):
+    """[2, l, 2] int32 centres on an hg x wg grid that load K4's pieces
+    (gk.BOX_PIECE contributions a warp) in one way each."""
+    c = torch.stack([torch.randint(0, wg, (2, l), generator=gen),
+                     torch.randint(0, hg, (2, l), generator=gen)],
+                    -1).to(torch.int32)
+    off = torch.tensor([-10, -10], dtype=torch.int32)
+    piece = gk.BOX_PIECE
+    if case == "piece_edges":
+        # row 0: groups of piece - 1, piece, piece + 1, 2 piece and
+        # 2 piece + 1 queries on one cell each, 10 cells apart (each key
+        # near a group counts that group only); the rest off the grid
+        c[0] = off
+        i = 0
+        for n, cell in ((piece - 1, (5, 5)), (piece, (15, 5)),
+                        (piece + 1, (25, 5)), (2 * piece, (5, 20)),
+                        (2 * piece + 1, (15, 20))):
+            c[0, i:i + n] = torch.tensor(cell, dtype=torch.int32)
+            i += n
+    elif case == "crowded":
+        # most of row 0 on one cell, a crowd in a corner of row 1
+        c[0, :3 * l // 4] = torch.tensor([20, 17], dtype=torch.int32)
+        c[1, 100:140] = 0
+    elif case == "offgrid":
+        c = torch.stack([torch.randint(-4, wg + 4, (2, l), generator=gen),
+                         torch.randint(-4, hg + 4, (2, l), generator=gen)],
+                        -1).to(torch.int32)
+        c[0, :100] = off                               # fully off
+        c[1, :50, 0] = -2                              # partly off
+        c[1, 50:100] = torch.tensor([wg + 1, hg + 1], dtype=torch.int32)
+    elif case == "empty_row":
+        c[1] = torch.tensor([wg + 5, hg + 5], dtype=torch.int32)
+    return c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["piece_edges", "crowded", "offgrid",
+                                  "empty_row"])
+def test_box_dkv_kernel_splits_keys_into_pieces(dev, dtype, case):
+    """K4 against the plain backward where its keys' lists of
+    contributions are cut into pieces: keys with exactly one piece less
+    one, one piece, one piece and one, two pieces and two and one; a key
+    covered by > 1000 queries; off-grid and partly-off rows; a batch row
+    with no query on the grid. One launch, the same bits twice."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(7)
+    hg, wg = 40, 40
+    l = hg * wg
+    c = _dkv_centres(case, gen, hg, wg, l)
+    n_key, _, _ = gk.box_dkv_schedule(c, (hg, wg))
+    if case == "piece_edges":
+        piece = gk.BOX_PIECE
+        assert {piece - 1, piece, piece + 1, 2 * piece,
+                2 * piece + 1} <= set(n_key[0].tolist())
+    elif case == "crowded":
+        assert n_key.max() > 1000
+    elif case == "empty_row":
+        assert (n_key[1] == 0).all()
+    c = c.to(dev)
+    q, k, v = (_rand(gen, (2, l, 4, 64), dt, dev) for _ in range(3))
+    g = _rand(gen, (2, l, 4, 64), torch.float32, dev)
+    out, lse = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
+    delta = (g * out.float()).sum(-1)
+    gk.reset_launch_counts()
+    dk, dv = gk.box_window_attention_bwd_dkv(q, k, v, c, lse, delta, g,
+                                             (hg, wg))
+    assert gk.LAUNCHES["box_window_attention_bwd_dkv"] == 1
+    ref = gk.box_window_attention_bwd_plain(q, k, v, c, out, lse, g,
+                                            (hg, wg))[1:]
+    for a, r, name in zip((dk, dv), ref, ("dk", "dv")):
+        assert a.dtype == torch.float32, name
+        assert _rel_err(a.to(dt), r) <= BWD_TOL[dt], name
+    if case == "empty_row":
+        assert (dk[1] == 0).all() and (dv[1] == 0).all()
+    again = gk.box_window_attention_bwd_dkv(q, k, v, c, lse, delta, g,
+                                            (hg, wg))
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])

@@ -142,6 +142,98 @@ def test_box_bwd_plain_matches_vjp_of_reference():
         assert_close(a, r, 1e-4, 1e-5, name)
 
 
+def _concentrated_centres(pattern, b, hg, wg, seed):
+    """[b, hg * wg, 2] int32 centres where many queries share a cell, as
+    K4 meets them in training: "collapsed", a warp that crowds the grid's
+    image into a corner (an untrained model's near-degenerate RANSAC fit),
+    plus a few rows off and partly off the grid; "zoom", a zoom by 2 about
+    the centre, 4 queries on each destination cell."""
+    rng = np.random.default_rng(seed)
+    y, x = np.divmod(np.arange(hg * wg), wg)
+    if pattern == "collapsed":
+        w = 1.0 + 0.6 * x / wg + 0.5 * y / hg
+        c = np.stack([np.floor(x / (4 * w)) + 1, np.floor(y / (4 * w))], -1)
+    else:
+        c = np.stack([x // 2 + wg // 4, y // 2 + hg // 4], -1)
+    c = np.repeat(c[None], b, axis=0).astype(np.int32)
+    c[:, rng.choice(hg * wg, 4, replace=False)] = (-10, -10)
+    c[-1, rng.choice(hg * wg, 3, replace=False), 0] = -1
+    return c
+
+
+@pytest.mark.parametrize("pattern", ["collapsed", "zoom"])
+@pytest.mark.parametrize("force_tiled", [True, False])
+def test_box_bwd_plain_matches_pallas_at_concentrated_centres(
+        pattern, force_tiled):
+    """The contract K4's schedule keeps, at centres that crowd many queries
+    onto few cells: the plain backward against the Pallas backward in
+    interpret mode."""
+    q, k, v, g, _, grid = _box_inputs(8)
+    centers = _concentrated_centres(pattern, q.shape[0], *grid, 8)
+    jq, jk, jv, jg, jc = (jnp.asarray(x) for x in (q, k, v, g, centers))
+    out_j, lse_j = _box_forward(jq, jk, jv, jc, grid, 2, FILL, 16, 16,
+                                interpret=True, force_tiled=force_tiled)
+    ref = _box_bwd_pallas(jq, jk, jv, jc, jg, out_j, lse_j, grid, 2, FILL,
+                          16, 16, interpret=True)
+    out, lse = gk.box_window_attention_fwd(t(q), t(k), t(v), t(centers),
+                                           grid)
+    got = gk.box_window_attention_bwd(t(q), t(k), t(v), t(centers), out, lse,
+                                      t(g), grid)
+    for a, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert_close(a, r, 1e-4, 1e-5, name)
+    n_key = gk.box_dkv_schedule(t(centers), grid)[0]
+    assert n_key.max() >= 16               # many queries on one key
+    if pattern == "collapsed":
+        assert (n_key == 0).any()          # and keys that none covers
+
+
+@pytest.mark.parametrize("pattern", ["collapsed", "zoom"])
+def test_box_bwd_plain_matches_vjp_of_reference_at_concentrated_centres(
+        pattern):
+    q, k, v, g, _, grid = _box_inputs(9)
+    centers = _concentrated_centres(pattern, q.shape[0], *grid, 9)
+    jc = jnp.asarray(centers)
+    _, vjp = jax.vjp(lambda a, b_, c: box_attention_reference(
+        a, b_, c, jc, grid, 2, FILL), *(jnp.asarray(x) for x in (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    out, lse = gk.box_window_attention_fwd(t(q), t(k), t(v), t(centers),
+                                           grid)
+    got = gk.box_window_attention_bwd(t(q), t(k), t(v), t(centers), out, lse,
+                                      t(g), grid)
+    for a, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert_close(a, r, 1e-4, 1e-5, name)
+
+
+@pytest.mark.parametrize("pattern", ["random", "collapsed", "zoom"])
+def test_box_dkv_schedule_matches_brute_force(pattern):
+    """K4's split of the work, as the port mirrors it in torch: per key the
+    queries whose box covers it (counted here from the dense box mask),
+    max(1, ceil(n / BOX_PIECE)) pieces a key, their exclusive scan, and no
+    more pieces than box_dkv_max_pieces, which sizes the kernel's launch."""
+    hg, wg, r = 20, 24, 2
+    if pattern == "random":
+        rng = np.random.default_rng(10)
+        centers = np.stack([rng.integers(-4, wg + 4, size=(3, hg * wg)),
+                            rng.integers(-4, hg + 4, size=(3, hg * wg))],
+                           -1).astype(np.int32)
+    else:
+        centers = _concentrated_centres(pattern, 3, hg, wg, 10)
+    y, x = np.divmod(np.arange(hg * wg), wg)
+    box = ((np.abs(x[None, None] - centers[..., :1]) <= r)
+           & (np.abs(y[None, None] - centers[..., 1:]) <= r))   # [B, L, S]
+    n_ref = box.sum(axis=1)
+    pieces_ref = np.maximum(1, -(-n_ref // gk.BOX_PIECE))
+    n, pieces, base = (x_.numpy() for x_ in gk.box_dkv_schedule(
+        t(centers), (hg, wg), r))
+    np.testing.assert_array_equal(n, n_ref)
+    np.testing.assert_array_equal(pieces, pieces_ref)
+    np.testing.assert_array_equal(base[:, 1:], np.cumsum(pieces_ref, 1))
+    assert (base[:, 0] == 0).all()
+    assert base[:, -1].max() <= gk.box_dkv_max_pieces(hg * wg, hg * wg, r)
+    if pattern == "collapsed":
+        assert n.max() > 2 * gk.BOX_PIECE   # a key of three pieces or more
+
+
 def test_autograd_functions_route_through_the_backwards():
     """backward() of the differentiable ops gives the explicit backwards'
     gradients; the centres and the mask get none, and no kernel runs on the
