@@ -10,9 +10,14 @@ Phases, each printing its own lines and its seconds:
 2. kernels: the forward kernels K1 and K2 against their plain PyTorch
    versions on the card at the inference path's shapes (B=2), in bf16 and
    f32, with the stated tolerance, and the kernel's, the plain version's
-   and one library call's times beside the kernel's bound; K2 also with
-   the same live counts packed first (the GAM's prefix mask) and at the
-   training path's shape (B=4, S=512, f32);
+   and one library call's times beside the kernel's bound; K1 also at
+   three centre patterns (eval/box_kernels.py: a homography near the
+   identity with off-grid rows, a collapsing perspective, a zoom by 2),
+   against the plain version with the off-grid rows' contract, the same
+   bits twice, timed hot and with L2 flushed, with its load (the most
+   queries in one destination tile, the pieces); K2 also with the same
+   live counts packed first (the GAM's prefix mask) and at the training
+   path's shape (B=4, S=512, f32);
 3. main path: the port's BatchedMatcher at full width, bf16, 480x640, the
    bench configuration, random weights from a seed, on a textured image and
    its warp by a known homography; the launch counts of the kernels are
@@ -25,21 +30,27 @@ Phases, each printing its own lines and its seconds:
    the same numbers as phase 2 (library: the backward of
    scaled_dot_product_attention with the same boolean mask); K3 is timed
    from K2's output and row statistics, as the train step runs it, and
-   also on the prefix mask; K4 also at two more centre patterns, a
-   collapsing homography (one key covered by ~4000 queries) and a zoom by
-   2 (4 queries a cell), each against the plain backward, the same bits
-   twice, timed hot and with L2 flushed, with its load (the most queries
-   covering one key);
+   also on the prefix mask; K4 and K5 also at the three centre patterns
+   (for K4 the collapsing one covers one key by ~4000 queries), each
+   against the plain backward, the same bits twice, timed hot and with L2
+   flushed, with its load (K4: the most queries covering one key; K5: as
+   K1's), and K1 there at the training path's shape (B=4, f32);
 5. training path: run_training at the headline recipe (480x640, f32,
    batch 4, random weights, the procedural bank of 256 textures), one
    warm-up step and three timed ones, with the launch counts of K1-K5 read
-   around it; one profiled step, whose K4 launches are then timed alone
-   on their own inputs, hot and cold, beside their load; one step at a
+   around it; one profiled step, whose K1, K4 and K5 calls are then timed
+   alone on their own inputs, hot and cold, beside their load; one step at a
    low coarse threshold where RANSAC finds a homography and the cross
    layers' gradients go through K4/K5;
 6. train parity: at 120x160 in f32 with full widths, one train step
    through the kernels against the same step through their plain versions
    on the same card (loss and every parameter gradient).
+
+K1, K4 and K5 (a plan and then the pieces, several launches a call) are
+timed on the device by CUDA-graph replay (kernel_ms), beside the time per
+call of an eager loop by CUDA events (call_ms), which also holds the
+host's time per call where that is the longer; the other kernels by the
+event loop.
 
 The script reads no data file: weights come from a seed and images from
 numpy. It needs only the standard library, torch and numpy. Any failure
@@ -150,32 +161,6 @@ def phase_device():
 
 # ------------------------------------------------------------ phase 2 ------
 
-def _warped_centers(H, b: int, grid_hw) -> torch.Tensor:
-    """Box centres as the GAM makes them: each cell's corner pixel warped
-    by H (in pixels, 8 a cell), floored to a destination cell."""
-    hg, wg = grid_hw
-    scale = 8
-    H = torch.tensor(H, dtype=torch.float64)
-    ids = torch.arange(hg * wg)
-    pts = torch.stack([(ids % wg) * scale, (ids // wg) * scale,
-                       torch.ones_like(ids)], -1).double()
-    w = pts @ H.T
-    c = torch.floor((w[:, :2] / w[:, 2:]) / scale).to(torch.int32)
-    return c[None].repeat(b, 1, 1)
-
-
-def _homography_centers(b: int, grid_hw) -> torch.Tensor:
-    """Warped box centres for a known homography near the identity, with a
-    few rows pushed fully and partly off the grid."""
-    hg, wg = grid_hw
-    centers = _warped_centers([[0.95, 0.05, 12.0], [-0.04, 0.98, -6.0],
-                               [1e-5, 2e-5, 1.0]], b, grid_hw)
-    centers[:, :40] = torch.tensor([-10, -10], dtype=torch.int32)   # off
-    centers[:, 40:80, 0] = -1                                      # partly
-    centers[-1, 100:140] = torch.tensor([wg + 1, hg + 1], dtype=torch.int32)
-    return centers
-
-
 def _rand(shape, gen, dtype, device):
     return torch.randn(shape, generator=gen).to(dtype=dtype, device=device)
 
@@ -183,6 +168,7 @@ def _rand(shape, gen, dtype, device):
 def phase_kernels(device):
     from geoformer_tpu_torch.ops import gam_kernels as gk
 
+    from geoformer_tpu_torch.eval import box_kernels as bk
     gen = torch.Generator().manual_seed(0)
     b = KERNEL_B
     hg, wg = GRID_HW
@@ -192,7 +178,7 @@ def phase_kernels(device):
         # ---- K1: box-window attention, L = S = 4800
         q, k, v = (_rand((b, s, HEADS, HEAD_DIM), gen, dtype, device)
                    for _ in range(3))
-        centers = _homography_centers(b, GRID_HW).to(device)
+        centers = bk.homography_centers(b, GRID_HW).to(device)
         out, lse = gk.box_window_attention_fwd(q, k, v, centers, GRID_HW, 2)
         ref, ref_lse = gk.box_window_attention_plain(q, k, v, centers,
                                                      GRID_HW, 2)
@@ -220,8 +206,10 @@ def phase_kernels(device):
         nbytes = (4 * q.numel() * q.element_size() + centers.numel() * 4
                   + lse.numel() * 4)
         bound, by = _bound(nbytes, flops, dtype)
-        ms = time_ms(lambda: gk.box_window_attention_fwd(q, k, v, centers,
-                                                         GRID_HW, 2), 50)
+        call_ms = time_ms(lambda: gk.box_window_attention_fwd(
+            q, k, v, centers, GRID_HW, 2), 50)
+        ms = bk.time_graph_ms(lambda: gk.box_window_attention_fwd(
+            q, k, v, centers, GRID_HW, 2), 50)
         plain_ms = time_ms(lambda: gk.box_window_attention_plain(
             q, k, v, centers, GRID_HW, 2), 3, warmup=1)
         box = _dense_box(centers, GRID_HW, 2)
@@ -231,12 +219,15 @@ def phase_kernels(device):
                              qt, kt, vt, attn_mask=box[:, None]), 5)
         del box
         log("kernels", name="box_window_attention", dtype=str(dtype),
-            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            kernel_ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}",
             library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}",
             bound_by=by)
         results[("box_window_attention", dtype)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound, bound_by=by)
+        for pattern, cen in bk.centre_patterns(b, GRID_HW):
+            _box_fwd_case(gk, q, k, v, cen.to(device), pattern)
         del q, k, v, out, ref
 
         # ---- K2: masked-KV attention, L = 4800, S = 1024, one row masked
@@ -385,6 +376,69 @@ def _dense_box(centers, grid_hw, r):
     sidx = torch.arange(hg * wg, device=centers.device)
     return (((sidx % wg)[None, None] - centers[..., 0:1]).abs() <= r) & \
         (((sidx // wg)[None, None] - centers[..., 1:2]).abs() <= r)
+
+
+def _gather_load(gk, centers, grid_hw) -> dict:
+    """K1's and K5's work on these centres: the queries whose box meets
+    the grid, the most queries in one destination tile, the tiles with
+    any, and the pieces (blocks of one head) over all batch rows."""
+    n, _, base = gk.box_gather_schedule(centers, grid_hw, 2)
+    return dict(on_grid=int(n.sum()), max_per_tile=int(n.max()),
+                tiles_with_any=int((n > 0).sum()),
+                pieces=int(base[:, -1].sum()))
+
+
+def _offgrid_rows(centers, grid_hw, r=2):
+    """[B, L] rows whose box misses the grid."""
+    hg, wg = grid_hw
+    cx, cy = centers[..., 0], centers[..., 1]
+    return (cx + r < 0) | (cx - r > wg - 1) | (cy + r < 0) | (cy - r > hg - 1)
+
+
+def _box_fwd_case(gk, q, k, v, centers, pattern):
+    """K1 alone on one centre pattern: against the plain version (out,
+    in-grid LSE, the off-grid rows' contract), the same bits twice, ms hot
+    and with L2 flushed, the bound, the load."""
+    from geoformer_tpu_torch.eval import box_kernels as bk
+
+    t0 = time.perf_counter()
+    dtype = q.dtype
+
+    def run():
+        return gk.box_window_attention_fwd(q, k, v, centers, GRID_HW, 2)
+
+    got, again = run(), run()
+    ref, ref_lse = gk.box_window_attention_plain(q, k, v, centers, GRID_HW, 2)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    out, lse = got
+    err = (out.float() - ref.float()).abs().max().item()
+    off = _offgrid_rows(centers, GRID_HW)
+    lse_err = ((lse - ref_lse)[~off].abs().max().item()
+               if bool((~off).any()) else 0.0)
+    off_ok = bool((out[off] == 0).all()) and bool(
+        torch.equal(lse[off], ref_lse[off]))
+    tol = TOL[("box_window_attention", dtype)]
+    cells = _box_cells(centers, GRID_HW, 2)
+    nbytes = (4 * q.numel() * q.element_size() + centers.numel() * 4
+              + lse.numel() * 4)
+    bound, by = _bound(nbytes, 4.0 * HEAD_DIM * HEADS * cells, dtype)
+    ms = bk.time_graph_ms(run, 50)
+    cold_ms = bk.time_graph_cold_ms(run, 10)
+    call_ms = time_ms(run, 50)
+    log("kernels", name="box_window_attention", dtype=str(dtype),
+        centres=pattern, shape=f"q{tuple(q.shape)}",
+        max_abs_err=f"{err:.3e}", tol=tol, lse_max_abs_err=f"{lse_err:.3e}",
+        lse_tol=LSE_TOL, offgrid_rows=int(off.sum()), offgrid_contract=off_ok,
+        same_bits_twice=same_bits, kernel_ms=f"{ms:.4f}",
+        kernel_cold_ms=f"{cold_ms:.4f}", call_ms=f"{call_ms:.4f}",
+        bound_ms=f"{bound:.4f}",
+        bound_by=by, **_gather_load(gk, centers, GRID_HW),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    check(err <= tol, f"K1 {dtype} {pattern}: out error {err} > {tol}")
+    check(lse_err <= LSE_TOL, f"K1 {dtype} {pattern}: lse error {lse_err}")
+    check(off_ok, f"K1 {dtype} {pattern}: off-grid rows break the contract")
+    check(same_bits, f"K1 {dtype} {pattern}: two calls differ")
 
 
 def _bound(nbytes: float, flops: float, dtype, f32_peak=PEAK_FLOPS[
@@ -631,33 +685,6 @@ TRAIN_INLIERS = 512      # the recipe's GAM KV capacity (--gam-max-inliers)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 
 
-def time_cold_ms(fn, iters: int) -> float:
-    """Mean device time of fn() with the L2 cache flushed before each call:
-    CUDA events around each call alone, a 256 MiB write between calls."""
-    flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
-    fn()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events) / iters
-
-
-# centre patterns of K4's rows besides the homography near the identity
-# (whose keys have <= 36 contributions each): a perspective H that crowds
-# the grid's image into a corner (one key covered by ~4000 queries, as in
-# a train step whose untrained RANSAC fitted a near-degenerate H), and a
-# zoom by 2 (each destination cell the centre of 4 queries)
-COLLAPSED_H = [[1.0, 0.0, 320.0], [0.0, 1.0, 240.0], [0.03, 0.024, 1.0]]
-ZOOM_H = [[0.5, 0.0, 160.0], [0.0, 0.5, 120.0], [0.0, 0.0, 1.0]]
-
-
 def _k4_load(gk, centers, grid_hw) -> dict:
     """K4's work on these centres: the queries whose box meets the grid,
     the most contributions of one key (queries whose box covers it), the
@@ -671,9 +698,58 @@ def _k4_load(gk, centers, grid_hw) -> dict:
                 pieces=int(base[:, -1].max()))
 
 
+def _box_dq_case(gk, q, k, v, g, centers, pattern):
+    """K5 alone on one centre pattern: against the plain backward, the
+    off-grid rows' zero dq, the same bits twice, ms hot and with L2
+    flushed, the bound, the load."""
+    from geoformer_tpu_torch.eval import box_kernels as bk
+
+    t0 = time.perf_counter()
+    dtype = q.dtype
+    tol = BWD_TOL[dtype]
+    out, lse = gk.box_window_attention_fwd(q, k, v, centers, GRID_HW, 2)
+    gf = g.float()
+    delta = (gf * out.float()).sum(-1)
+
+    def run():
+        return gk.box_window_attention_bwd_dq(q, k, v, centers, lse, delta,
+                                              gf, GRID_HW, 2)
+
+    got, again = run(), run()
+    ref = gk.box_window_attention_bwd_plain(q, k, v, centers, out, lse, g,
+                                            GRID_HW, 2)[0]
+    torch.cuda.synchronize()
+    same_bits = torch.equal(got, again)
+    rel = _rel_err(got.to(dtype), ref)
+    off = _offgrid_rows(centers, GRID_HW)
+    off_zero = bool((got[off] == 0).all())
+    cells = _box_cells(centers, GRID_HW, 2)
+    # q, k, v in their type; f32 g, lse, delta in, f32 dq out
+    nbytes = (3 * q.numel() * q.element_size() + 2 * q.numel() * 4
+              + centers.numel() * 4 + 2 * lse.numel() * 4)
+    bound, by = _bound(nbytes, 6.0 * HEAD_DIM * HEADS * cells, dtype)
+    ms = bk.time_graph_ms(run, 20)
+    cold_ms = bk.time_graph_cold_ms(run, 10)
+    call_ms = time_ms(run, 20)
+    log("bwd_kernels", name="box_window_attention_bwd_dq",
+        dtype=str(dtype), centres=pattern, shape=f"q{tuple(q.shape)}",
+        rel_err=f"{rel:.3e}", rel_tol=tol, offgrid_rows=int(off.sum()),
+        offgrid_dq_zero=off_zero, same_bits_twice=same_bits,
+        kernel_ms=f"{ms:.4f}", kernel_cold_ms=f"{cold_ms:.4f}",
+        call_ms=f"{call_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=by,
+        **_gather_load(gk, centers, GRID_HW),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    check(rel <= tol, f"K5 {dtype} {pattern}: relative error {rel} > {tol}")
+    check(off_zero, f"K5 {dtype} {pattern}: off-grid rows got a gradient")
+    check(same_bits, f"K5 {dtype} {pattern}: two calls differ")
+
+
 def _box_dkv_case(gk, q, k, v, g, centers, pattern):
     """K4 alone on one centre pattern: against the plain backward, the
     same bits twice, ms hot and with L2 flushed, the bound, the load."""
+    from geoformer_tpu_torch.eval import box_kernels as bk
+
     t0 = time.perf_counter()
     dtype = q.dtype
     tol = BWD_TOL[dtype]
@@ -696,13 +772,15 @@ def _box_dkv_case(gk, q, k, v, g, centers, pattern):
     nbytes = (3 * q.numel() * q.element_size() + 3 * q.numel() * 4
               + centers.numel() * 4 + 2 * lse.numel() * 4)
     bound, by = _bound(nbytes, 8.0 * HEAD_DIM * HEADS * cells, dtype)
-    ms = time_ms(run, 20)
-    cold_ms = time_cold_ms(run, 10)
+    ms = bk.time_graph_ms(run, 20)
+    cold_ms = bk.time_graph_cold_ms(run, 10)
+    call_ms = time_ms(run, 20)
     load = _k4_load(gk, centers, GRID_HW)
     log("bwd_kernels", name="box_window_attention_bwd_dkv",
         dtype=str(dtype), centres=pattern, shape=f"q{tuple(q.shape)}",
         rel_err=f"{rel:.3e}", rel_tol=tol, same_bits_twice=same_bits,
         kernel_ms=f"{ms:.4f}", kernel_cold_ms=f"{cold_ms:.4f}",
+        call_ms=f"{call_ms:.4f}",
         bound_ms=f"{bound:.4f}", bound_by=by, **load,
         seconds=f"{time.perf_counter() - t0:.1f}")
     check(rel <= tol, f"K4 {dtype} {pattern}: relative error {rel} > {tol}")
@@ -784,6 +862,7 @@ def _mka_bwd_case(gk, q, k, v, mask, g, kind):
 def phase_backward_kernels(device):
     """K3, K4 and K5 against their plain backwards at the training path's
     shapes (B=4, L=4800; S=512 for K3, S=4800 for K4/K5), f32 and bf16."""
+    from geoformer_tpu_torch.eval import box_kernels as bk
     from geoformer_tpu_torch.ops import gam_kernels as gk
 
     gen = torch.Generator().manual_seed(1)
@@ -812,7 +891,7 @@ def phase_backward_kernels(device):
         # ---- K5 and K4: box-window backward, centres with off-grid rows
         q, k, v, g = (_rand((b, s, HEADS, HEAD_DIM), gen, dtype, device)
                       for _ in range(4))
-        centers = _homography_centers(b, GRID_HW).to(device)
+        centers = bk.homography_centers(b, GRID_HW).to(device)
         out, lse = gk.box_window_attention_fwd(q, k, v, centers, GRID_HW, 2)
         gf = g.float()
         delta = (gf * out.float()).sum(-1)
@@ -850,11 +929,14 @@ def phase_backward_kernels(device):
             bound, by = _bound(nbytes, flops, dtype)
             fn = (gk.box_window_attention_bwd_dq if out_n == 1
                   else gk.box_window_attention_bwd_dkv)
-            ms = time_ms(lambda: fn(q, k, v, centers, lse, delta, gf,
-                                    GRID_HW, 2), 20)
+            ms = bk.time_graph_ms(lambda: fn(q, k, v, centers, lse, delta, gf,
+                                          GRID_HW, 2), 20)
+            call_ms = time_ms(lambda: fn(q, k, v, centers, lse, delta, gf,
+                                         GRID_HW, 2), 20)
             log("bwd_kernels", name=name, dtype=str(dtype),
                 shape=f"q{tuple(q.shape)}", max_abs_err=f"{err:.3e}",
                 rel_err=f"{rel:.3e}", rel_tol=tol, kernel_ms=f"{ms:.4f}",
+                call_ms=f"{call_ms:.4f}",
                 plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
                 bound_ms=f"{bound:.4f}", bound_by=by,
                 offgrid_rows=int(offgrid.any(-1).sum()),
@@ -865,11 +947,12 @@ def phase_backward_kernels(device):
                 library_ms=lib_ms, bound_ms=bound, bound_by=by)
         check(off_zero, f"K5 {dtype}: off-grid rows got a gradient")
         check(deterministic, f"K4 {dtype}: two calls differ")
-        for pattern, cen in (
-                ("homography", centers),
-                ("collapsed", _warped_centers(COLLAPSED_H, b, GRID_HW)),
-                ("zoom2", _warped_centers(ZOOM_H, b, GRID_HW))):
-            _box_dkv_case(gk, q, k, v, g, cen.to(device), pattern)
+        for pattern, cen in bk.centre_patterns(b, GRID_HW):
+            cen = cen.to(device)
+            _box_dkv_case(gk, q, k, v, g, cen, pattern)
+            _box_dq_case(gk, q, k, v, g, cen, pattern)
+            if dtype == torch.float32:   # K1 at the training path's shape
+                _box_fwd_case(gk, q, k, v, cen, pattern)
         del q, k, v, g, out, ref, dq, dk, dv, again
         torch.cuda.empty_cache()
     return results
@@ -882,8 +965,9 @@ TRAIN_STEPS = 4          # one warm-up step, then three timed
 TRAIN_SEED = 66          # run_training's default seed (weights and data)
 GAM_KERNEL_NAMES = ("mka_fwd_kernel", "box_fwd_kernel", "mka_bwd_dq_kernel",
                     "mka_bwd_dkv_kernel", "mka_bwd_sum_kernel",
-                    "box_bwd_dq_kernel", "box_count_kernel",
-                    "box_plan_kernel", "box_fill_kernel",
+                    "box_bwd_dq_kernel", "gather_count_kernel",
+                    "gather_fill_kernel",
+                    "box_count_kernel", "box_plan_kernel", "box_fill_kernel",
                     "box_bwd_dkv_kernel", "box_dkv_sum_kernel")
 
 
@@ -941,21 +1025,34 @@ def _profile_step(step_fn, state, batch, lr, gen):
 
 
 @contextlib.contextmanager
-def _keep_k4_inputs(gk):
-    """Within the block, each call of K4's wrapper keeps its arguments (the
-    centres and the tensors K4 reads) in the list it yields."""
-    calls = []
-    wrapped = gk.box_window_attention_bwd_dkv
+def _keep_inputs(gk, *names):
+    """Within the block, each call of the named kernel wrappers keeps its
+    arguments (the centres and the tensors the kernel reads) in the list
+    of its name in the dict it yields."""
+    calls = {name: [] for name in names}
+    wrapped = {name: getattr(gk, name) for name in names}
 
-    def keep(*args):
-        calls.append(args)
-        return wrapped(*args)
+    def keeper(name):
+        def keep(*args):
+            calls[name].append(args)
+            return wrapped[name](*args)
+        return keep
 
-    gk.box_window_attention_bwd_dkv = keep
+    for name in names:
+        setattr(gk, name, keeper(name))
     try:
         yield calls
     finally:
-        gk.box_window_attention_bwd_dkv = wrapped
+        for name, fn in wrapped.items():
+            setattr(gk, name, fn)
+
+
+# wrapper -> (log tag, position of grid_hw in its arguments, its load)
+PROFILED_ALONE = {
+    "box_window_attention_bwd_dkv": ("training_profile_k4", 7, _k4_load),
+    "box_window_attention_bwd_dq": ("training_profile_k5", 7, _gather_load),
+    "box_window_attention_fwd": ("training_profile_k1", 4, _gather_load),
+}
 
 
 def phase_training(device):
@@ -972,6 +1069,7 @@ def phase_training(device):
     from geoformer_tpu_torch.data.native import native_textures_mixed
     from geoformer_tpu_torch.data.synthetic import make_pair_batch
     from geoformer_tpu_torch.models import GeoFormer
+    from geoformer_tpu_torch.eval import box_kernels as bk
     from geoformer_tpu_torch.ops import gam_kernels as gk
     from geoformer_tpu_torch.train.loop import run_training
     from geoformer_tpu_torch.train.trainer import make_train_step
@@ -1034,7 +1132,7 @@ def phase_training(device):
     base = torch.from_numpy(native_textures_mixed(
         TRAIN_B, *TRAIN_HW, seed=7)).to(device)
     batch = make_pair_batch(base, gen)
-    with _keep_k4_inputs(gk) as k4_calls:
+    with _keep_inputs(gk, *PROFILED_ALONE) as calls:
         window_ms, busy_ms, gam_by_kernel = _profile_step(
             step_fn, state, batch, 1e-5, gen)
     gam_ms = sum(gam_by_kernel.values())
@@ -1047,18 +1145,18 @@ def phase_training(device):
         by_kernel={k: f"{v:.3f}" for k, v in gam_by_kernel.items()},
         gam_kernels_share_of_step=f"{gam_ms / window_ms:.4f}",
         gam_kernels_share_of_busy=f"{gam_ms / busy_ms:.4f}")
-    check(len(k4_calls) == 4, f"the profiled step called K4 {len(k4_calls)} "
-          "times, expected 4")
-    for i, args in enumerate(k4_calls):
-        # K4 alone on the step's inputs, after the step
-        centers = args[3]
-        ms = time_ms(lambda: gk.box_window_attention_bwd_dkv(*args), 20)
-        cold_ms = time_cold_ms(
-            lambda: gk.box_window_attention_bwd_dkv(*args), 10)
-        log("training_profile_k4", launch=i, kernel_ms_alone=f"{ms:.4f}",
-            kernel_cold_ms_alone=f"{cold_ms:.4f}",
-            **_k4_load(gk, centers, tuple(args[7])))
-    del k4_calls
+    for name, (tag, grid_at, load) in PROFILED_ALONE.items():
+        check(len(calls[name]) == 4, f"the profiled step called {name} "
+              f"{len(calls[name])} times, expected 4")
+        fn = getattr(gk, name)
+        for i, args in enumerate(calls[name]):
+            # the kernel alone on the step's inputs, after the step
+            ms = bk.time_graph_ms(lambda: fn(*args), 20)
+            cold_ms = bk.time_graph_cold_ms(lambda: fn(*args), 10)
+            log(tag, launch=i, kernel_ms_alone=f"{ms:.4f}",
+                kernel_cold_ms_alone=f"{cold_ms:.4f}",
+                **load(gk, args[3], tuple(args[grid_at])))
+    del calls
 
     # one step at LIVE_THR: RANSAC finds a homography on the matches
     state.model.config = headline_config(thr=LIVE_THR)

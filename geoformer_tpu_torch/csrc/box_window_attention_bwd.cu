@@ -17,9 +17,19 @@
 // written once each, ~7 x 19.7 MB in f32 at B=4, L=S=4800, H=4, D=64
 // (~0.04 ms at 3.35 TB/s).
 //
-// K5 (dq) is the gather direction: one warp per (batch, query, head) visits
-// the in-grid cells of the query's box, as K1's forward does; each lane owns
-// two of the 64 channels.
+// K5 (dq) is the gather direction and shares K1's design (box_plan.cuh):
+// the queries are sorted by the 8x8 destination tile that holds their
+// centre, and a block takes a piece of at most 128 of one tile's queries
+// and one head. It copies the tile's window of K and V rows ((8 + 2r)^2 =
+// 144 cells, 72 KB in f32, 36 KB in bf16) into shared memory once, so each
+// K/V row is read from L2 about (8 + 2r)^2 / 64 = 2.25 times a launch in
+// all, not once for every query whose box covers it (25 times, ~1 GB a
+// launch in f32 at B=4). Then 8 lanes per query, 8 channels a lane, walk
+// the box's cells in raster order: two products a cell, summed over the 8
+// lanes by 3 shuffle levels, and dq += dl k. Three launches: the plan's two
+// (count, fill) and the pieces. The shared-memory reads (512 bytes a
+// query-cell in f32) and the instructions per cell, not the bytes from
+// memory, now bound a launch.
 //
 // K4 (dk/dv) is the scatter direction: the queries that touch key cell s are
 // those whose centre lies within r of s, an irregular set under a
@@ -52,56 +62,84 @@
 // ceil((2r+1)^2 L / kPiece) per batch row, so the host reads nothing; the
 // surplus warps exit.
 
-#include "gam_common.cuh"
+#include "box_plan.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kWarpsPerBlock = 8;
 
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// K5's contract for a row whose box misses the grid: dq = 0, all heads,
+// in parts of 16 bytes.
+struct ZeroDq {
+  float* dq;
+  int heads;
+  __device__ int parts() const { return heads * kHeadDim / 4; }
+  __device__ void operator()(long long bl, int i) const {
+    reinterpret_cast<float4*>(dq + bl * heads * kHeadDim)[i] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+};
+
+// K5's pieces: one block per (head, piece, batch row) with the piece's
+// window in dynamic shared memory (window_bytes<T, R>); a group of 8 lanes
+// per query, each warp taking 4 queries at a time until the piece's are
+// done. Each query visits the (2R+1)^2 cells of its box in raster order,
+// every group in step (cells off the grid read a clamped cell and get p =
+// 0), so the shuffles need no mask.
+template <typename T, int R>
+__global__ void __launch_bounds__(kGatherThreads, 3)
 box_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ g,
                   const int* __restrict__ centers,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
-                  int batch, int len_q, int len_kv, int heads, int grid_h,
-                  int grid_w, int radius, float scale) {
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= (long long)batch * len_q * heads) return;
-  const int h = (int)(row % heads);
-  const long long bl = row / heads;  // b * len_q + l
-  const long long b = bl / len_q;
-
-  const int cx = centers[2 * bl];
-  const int cy = centers[2 * bl + 1];
-  const int x0 = max(cx - radius, 0), x1 = min(cx + radius, grid_w - 1);
-  const int y0 = max(cy - radius, 0), y1 = min(cy + radius, grid_h - 1);
-
-  const float2 qv = gam::load2(q + row * kHeadDim + 2 * lane);
-  const float2 gv = gam::load2(g + row * kHeadDim + 2 * lane);
-  const float row_lse = lse[row];
-  const float row_delta = delta[row];
-  float a0 = 0.f, a1 = 0.f;
-  for (int y = y0; y <= y1; ++y) {
-    for (int x = x0; x <= x1; ++x) {
-      const long long off =
-          ((b * len_kv + (long long)y * grid_w + x) * heads + h) * kHeadDim +
-          2 * lane;
-      const float2 kv = gam::load2(k + off);
-      const float2 vv = gam::load2(v + off);
-      const float qk = gam::warp_sum(qv.x * kv.x + qv.y * kv.y);
-      const float dp = gam::warp_sum(gv.x * vv.x + gv.y * vv.y);
-      const float p = expf(scale * qk - row_lse);
-      const float dl = p * (dp - row_delta) * scale;
-      a0 += dl * kv.x;
-      a1 += dl * kv.y;
+                  const float* __restrict__ delta, const GatherPlan pl,
+                  float* __restrict__ dq, int len_q, int len_kv, int heads,
+                  int grid_h, int grid_w, float scale) {
+  constexpr int W = 2 * R + 1, kSide = kGatherTile + 2 * R;
+  extern __shared__ __align__(16) unsigned char window[];
+  const int h = blockIdx.x;
+  const long long b = blockIdx.z;
+  Piece pc;
+  if (!find_piece(pl, b, blockIdx.y, grid_h, grid_w, R, pc)) return;
+  T* ks = reinterpret_cast<T*>(window);
+  T* vs = ks + kSide * kSide * kHeadDim;
+  stage_window(ks, vs, k, v, b, h, heads, len_kv, grid_w, pc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane >> 3, sub = lane & 7;
+  const float c1 = scale * gam::kLog2e;  // p = 2^(c1 q.k - log2e lse)
+  gam::cp_async_wait<0>();
+  __syncthreads();
+  // warp w takes queries 4 w + group, then kGatherGroups further on
+  for (int i0 = 4 * warp; i0 < pc.count; i0 += kGatherGroups) {
+    const GroupQuery<R> gq = group_query<R>(pl.order, centers, b, len_q,
+                                            heads, h, grid_h, grid_w, pc,
+                                            i0 + group);
+    float qv[8], gv[8], acc[8];
+    load_row(q + gq.row * kHeadDim, sub, qv);
+    load_row_as<T>(g + gq.row * kHeadDim, sub, gv);
+    const float lse2 = lse[gq.row] * gam::kLog2e, row_delta = delta[gq.row];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < W; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < W; ++dx) {
+        const int cell = gq.ys[dy] + gq.xs[dx];
+        float kk[8], vv[8], sums[2];
+        load_row(ks + cell * kHeadDim, sub, kk);
+        load_row(vs + cell * kHeadDim, sub, vv);
+        sums[0] = dot8(qv, kk);
+        sums[1] = dot8(gv, vv);
+        group_sums<2>(sums);
+        const float p =
+            gq.y_in[dy] && gq.x_in[dx] ? exp2f(sums[0] * c1 - lse2) : 0.f;
+        const float dl = p * (sums[1] - row_delta) * scale;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += dl * kk[j];
+      }
     }
+    if (gq.active) store_row_as<T>(dq + gq.row * kHeadDim, sub, acc);
   }
-  gam::store2(dq + row * kHeadDim + 2 * lane, a0, a1);
 }
 
 // Widened-grid bucket of a query centre, or -1 if its box misses the grid.
@@ -115,45 +153,6 @@ __device__ __forceinline__ int bucket_of(int cx, int cy, int grid_h,
 
 constexpr int kPiece = 64;  // contributions a warp of K4 takes at most
 constexpr int kPlanThreads = 1024;
-constexpr int kFillThreads = 256;
-
-// In-place exclusive scan of a[0..n) in shared memory by the whole block;
-// returns the total. warp_tot: 32 ints of shared memory.
-__device__ int block_exclusive_scan(int* a, int n, int* warp_tot) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
-  const int seg = (n + nt - 1) / nt;
-  const int j0 = min(tid * seg, n), j1 = min(j0 + seg, n);
-  int sum = 0;
-  for (int j = j0; j < j1; ++j) sum += a[j];
-  int incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int up = __shfl_up_sync(gam::kFullMask, incl, o);
-    if (lane >= o) incl += up;
-  }
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int x = lane < n_warps ? warp_tot[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int up = __shfl_up_sync(gam::kFullMask, x, o);
-      if (lane >= o) x += up;
-    }
-    warp_tot[lane] = x;
-  }
-  __syncthreads();
-  int run = (warp > 0 ? warp_tot[warp - 1] : 0) + incl - sum;
-  for (int j = j0; j < j1; ++j) {
-    const int c = a[j];
-    a[j] = run;
-    run += c;
-  }
-  const int total = warp_tot[n_warps - 1];
-  __syncthreads();
-  return total;
-}
 
 // One thread per (batch, query), grid (L / kFillThreads, B): the query's
 // bucket into bucket [B, len_q], and its count into the bucket's counts
@@ -446,20 +445,58 @@ unsigned blocks_for(long long rows) {
   return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-template <typename T>
+template <typename T, int R>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
               const void* centers, const void* lse, const void* delta,
-              void* dq, int batch, int len_q, int len_kv, int heads,
-              int grid_h, int grid_w, int radius, float scale,
+              void* plan, void* dq, int batch, int len_q, int len_kv,
+              int heads, int grid_h, int grid_w, int plan_ints, float scale,
               cudaStream_t stream) {
-  box_bwd_dq_kernel<T><<<blocks_for((long long)batch * len_q * heads),
-                         kWarpsPerBlock * 32, 0, stream>>>(
+  const GatherPlan pl = gather_plan(plan, batch, len_q, grid_h, grid_w, R);
+  constexpr size_t smem = window_bytes<T, R>();
+  if (pl.ints > plan_ints || pl.max_pieces > 65535 || heads > 65535 ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      box_bwd_dq_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess)
+    err = launch_gather_plan(static_cast<const int*>(centers), pl,
+                             ZeroDq{static_cast<float*>(dq), heads}, batch,
+                             len_q, grid_h, grid_w, R, stream);
+  if (err != cudaSuccess) return (int)err;
+  box_bwd_dq_kernel<T, R><<<dim3(heads, pl.max_pieces, batch),
+                            kGatherThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(g),
       static_cast<const int*>(centers), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), batch,
-      len_q, len_kv, heads, grid_h, grid_w, radius, scale);
+      static_cast<const float*>(delta), pl, static_cast<float*>(dq), len_q,
+      len_kv, heads, grid_h, grid_w, scale);
   return (int)cudaGetLastError();
+}
+
+// K5 for the radii the kernels are compiled for (box widths 3, 5, 7).
+template <typename T>
+int launch_dq_any(const void* q, const void* k, const void* v, const void* g,
+                  const void* centers, const void* lse, const void* delta,
+                  void* plan, void* dq, int batch, int len_q, int len_kv,
+                  int heads, int grid_h, int grid_w, int radius,
+                  int plan_ints, float scale, cudaStream_t stream) {
+  if (batch == 0 || len_q == 0) return 0;
+  switch (radius) {
+    case 1:
+      return launch_dq<T, 1>(q, k, v, g, centers, lse, delta, plan, dq,
+                             batch, len_q, len_kv, heads, grid_h, grid_w,
+                             plan_ints, scale, stream);
+    case 2:
+      return launch_dq<T, 2>(q, k, v, g, centers, lse, delta, plan, dq,
+                             batch, len_q, len_kv, heads, grid_h, grid_w,
+                             plan_ints, scale, stream);
+    case 3:
+      return launch_dq<T, 3>(q, k, v, g, centers, lse, delta, plan, dq,
+                             batch, len_q, len_kv, heads, grid_h, grid_w,
+                             plan_ints, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -531,20 +568,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
 
 // K5. q: [B, L, H, 64]; k, v: [B, S, H, 64] (bf16 if is_bf16 else f32), S =
 // grid_h * grid_w; g: f32 [B, L, H, 64]; centers: int32 [B, L, 2]; lse,
-// delta: f32 [B, L, H]. Writes f32 dq [B, L, H, 64]. Returns
-// cudaGetLastError() after the launch.
+// delta: f32 [B, L, H]; plan: int32 scratch of plan_ints >= the size
+// box_plan.cuh's GatherPlan carves. Writes f32 dq [B, L, H, 64]. Returns the
+// first launch error, or 0.
 extern "C" int gam_box_window_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* g,
-    const void* centers, const void* lse, const void* delta, void* dq,
-    int batch, int len_q, int len_kv, int heads, int grid_h, int grid_w,
-    int radius, float scale, int is_bf16, void* stream) {
+    const void* centers, const void* lse, const void* delta, void* plan,
+    void* dq, int batch, int len_q, int len_kv, int heads, int grid_h,
+    int grid_w, int radius, int plan_ints, float scale, int is_bf16,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dq<__nv_bfloat16>(q, k, v, g, centers, lse, delta, dq,
-                                    batch, len_q, len_kv, heads, grid_h,
-                                    grid_w, radius, scale, s);
-  return launch_dq<float>(q, k, v, g, centers, lse, delta, dq, batch, len_q,
-                          len_kv, heads, grid_h, grid_w, radius, scale, s);
+    return launch_dq_any<__nv_bfloat16>(q, k, v, g, centers, lse, delta,
+                                        plan, dq, batch, len_q, len_kv, heads,
+                                        grid_h, grid_w, radius, plan_ints,
+                                        scale, s);
+  return launch_dq_any<float>(q, k, v, g, centers, lse, delta, plan, dq,
+                              batch, len_q, len_kv, heads, grid_h, grid_w,
+                              radius, plan_ints, scale, s);
 }
 
 // K4. Inputs as K5; scratch: with n_buckets = (grid_h + 2r)(grid_w + 2r),

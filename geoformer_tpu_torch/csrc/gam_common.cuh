@@ -1,5 +1,5 @@
-// Shared helpers of the GAM attention kernels: paired loads/stores along
-// the head dimension in f32, and a warp sum.
+// Shared helpers of the GAM attention kernels: paired stores along the head
+// dimension from f32, and cp.async copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,14 +8,7 @@
 namespace gam {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// Two consecutive elements (8-byte or 4-byte aligned) widened to f32.
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -24,10 +17,26 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
+// Asynchronous copies from global into shared memory (a short copy
+// zero-fills the rest when full is false).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace gam

@@ -31,7 +31,6 @@ namespace gam {
 
 constexpr int kTile = 64;           // queries or keys per tile; head width
 constexpr int kTileThreads = 128;   // 4 warps of 16 rows each
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Row stride (elements) of a [64][64] tile of T in shared memory: 68 floats
 // or 72 bf16. Row-major fragment reads (load_a, load_bt) then hit 32
@@ -49,28 +48,6 @@ __host__ __device__ constexpr int tile_bytes() {
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
-}
-
-// ------------------------------------------------------------ cp.async ----
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Copies rows [0, 64) of a [64][64] slab of T (global row stride rs

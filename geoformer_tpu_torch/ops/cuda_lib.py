@@ -30,15 +30,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "gam_box_window_attention": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        _I, _P),
     "gam_masked_kv_attention": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
     "gam_masked_kv_attention_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _I, _F, _F, _I, _P),
     "gam_box_window_attention_bwd_dq": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-        _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _I, _P),
     "gam_box_window_attention_bwd_dkv": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
         _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),

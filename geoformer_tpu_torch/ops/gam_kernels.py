@@ -4,7 +4,8 @@ Counterpart of geoformer_tpu/ops/pallas_attention.py:
 
 * K1 ``box_window_attention_fwd`` replaces ``_box_forward`` and its Pallas
   kernels ``_box_fwd_tiled_kernel`` (the default) and ``_box_fwd_kernel``
-  (whole-KV, same out and LSE). Source: ``csrc/box_window_attention.cu``.
+  (whole-KV, same out and LSE). Source: ``csrc/box_window_attention.cu``;
+  K1 and K5 share the gather plan of ``csrc/box_plan.cuh``.
 * K5 and K4 ``box_window_attention_bwd`` replace ``_box_bwd_pallas`` and
   its kernels ``_box_bwd_dq_kernel`` and ``_box_bwd_dkv_kernel``. Source:
   ``csrc/box_window_attention_bwd.cu``.
@@ -18,8 +19,10 @@ ops (``torch.autograd.Function``, the counterparts of the two
 ``custom_vjp``s); the mask and the centres get no gradient.
 
 A wrapper given CPU tensors computes the plain version. Given CUDA tensors it
-launches the kernel or raises; it never falls back. Each launch adds one to
-``LAUNCHES[name]``, so a run can show that its path went through the kernel.
+launches the kernel or raises; it never falls back. Each call that launches
+adds one to ``LAUNCHES[name]`` (K1, K4 and K5 launch a plan and then the
+pieces, one count a call), so a run can show that its path went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -146,7 +149,10 @@ def box_window_attention_fwd(q, k, v, centers, grid_hw, radius: int = 2,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1. Gather-free GAM cross attention: query l attends to the
     destination cells (sx, sy) with |sx - cx| <= r and |sy - cy| <= r
-    around its centre.
+    around its centre. On the card one call is three launches (the two of
+    the plan that box_gather_schedule mirrors, then the pieces) and one
+    count in LAUNCHES; radius 1, 2 or 3 (the kernels are compiled for
+    those box widths).
 
     Args:
         q: [B, L, H, D]; k, v: [B, S, H, D] with S = grid_hw[0] * grid_hw[1].
@@ -160,6 +166,7 @@ def box_window_attention_fwd(q, k, v, centers, grid_hw, radius: int = 2,
                                           mask_fill)
     _require_cuda("box_window_attention", q)
     _check_box_shapes("box_window_attention", q, k, v, centers, grid_hw)
+    _check_gather_radius("box_window_attention", radius)
     _check_cuda_inputs("box_window_attention", (q, k, v), (centers,))
     b, l, h, d = q.shape
     s = k.shape[1]
@@ -167,13 +174,94 @@ def box_window_attention_fwd(q, k, v, centers, grid_hw, radius: int = 2,
     lib = load_library()
     out = torch.empty_like(q)
     lse = torch.empty((b, l, h), dtype=torch.float32, device=q.device)
+    plan = _box_gather_scratch(b, l, grid_hw, radius, q.device)
     with torch.cuda.device(q.device):
         _launch("box_window_attention", lib.gam_box_window_attention,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), centers.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), b, l, s, h, hd, wd, radius,
-                1.0 / math.sqrt(d), mask_fill, _DTYPES[q.dtype],
-                _stream(q.device))
+                plan.data_ptr(), out.data_ptr(), lse.data_ptr(), b, l, s, h,
+                hd, wd, radius, plan.numel(), 1.0 / math.sqrt(d), mask_fill,
+                _DTYPES[q.dtype], _stream(q.device))
     return out, lse
+
+
+# K1 and K5 sort their queries by the destination tile that holds their
+# centre: tiles of BOX_TILE x BOX_TILE cells of the grid widened by r on each
+# side. Each tile's list is cut into pieces of at most BOX_GATHER_PIECE
+# queries; a block takes one piece and one head, with the tile's window of
+# K/V rows (the tile widened by r again, <= (BOX_TILE + 2r)^2 cells) in
+# shared memory (csrc/box_plan.cuh: kGatherTile, kGatherPiece). Both
+# plans, K1/K5's and K4's, rank their queries in chunks of _BOX_CHUNK
+# (kFillThreads).
+BOX_TILE = 8
+BOX_GATHER_PIECE = 128
+_BOX_CHUNK = 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def box_gather_tiles(grid_hw, radius: int = 2) -> Tuple[int, int]:
+    """(tiles down, tiles across) of the grid widened by r on each side."""
+    hg, wg = grid_hw
+    return (_cdiv(hg + 2 * radius, BOX_TILE), _cdiv(wg + 2 * radius, BOX_TILE))
+
+
+def box_gather_max_pieces(len_q: int, grid_hw, radius: int = 2) -> int:
+    """Most pieces K1/K5 can make of one batch row, whatever the centres:
+    sum_t ceil(n_t / Q) <= tiles + L / Q. It sizes their grids without
+    reading the centres."""
+    ty, tx = box_gather_tiles(grid_hw, radius)
+    return ty * tx + _cdiv(len_q, BOX_GATHER_PIECE)
+
+
+def box_gather_schedule(centers, grid_hw, radius: int = 2):
+    """K1's and K5's split of the work, by torch ops on the centres' device.
+    Per tile t (row-major over the widened grid's tiles): n_t, the queries
+    whose centre lies in it (a query whose box misses the grid lies in
+    none), and its pieces ceil(n_t / Q); and the exclusive scan of the
+    pieces over each batch row's tiles, whose last column is the row's
+    number of pieces. Returns (n [B, T], pieces [B, T], base [B, T + 1]),
+    all int64."""
+    hg, wg = grid_hw
+    r = radius
+    ty, tx = box_gather_tiles(grid_hw, r)
+    ex = centers[..., 0].long() + r
+    ey = centers[..., 1].long() + r
+    ok = (ex >= 0) & (ex < wg + 2 * r) & (ey >= 0) & (ey < hg + 2 * r)
+    tile = torch.where(ok, (ey // BOX_TILE) * tx + ex // BOX_TILE,
+                       torch.zeros_like(ex))
+    n = torch.zeros((centers.shape[0], ty * tx), dtype=torch.long,
+                    device=centers.device)
+    n.scatter_add_(1, tile, ok.long())
+    pieces = _cdiv(n, BOX_GATHER_PIECE)
+    base = torch.cat([torch.zeros_like(pieces[:, :1]), pieces.cumsum(1)], 1)
+    return n, pieces, base
+
+
+# the radii K1 and K5 are compiled for (box widths 3, 5, 7; the GAM's is 5)
+_GATHER_RADII = (1, 2, 3)
+
+
+def _check_gather_radius(name, radius):
+    if radius not in _GATHER_RADII:
+        raise ValueError(f"{name}: radius {radius} not compiled (the kernel "
+                         f"takes {_GATHER_RADII})")
+
+
+def _box_gather_scratch(b, l, grid_hw, radius, device) -> torch.Tensor:
+    """int32 scratch of K1's and K5's plan, in the order the kernels carve
+    it (csrc/box_plan.cuh: GatherPlan): the tiles' counts, then starts
+    [B, T + 1], per-chunk tile counts [B, ceil(L / 256), T], each query's
+    tile and the queries' order [B, L], piece_base [B, T + 1] and
+    piece_tile [B, P], P = box_gather_max_pieces."""
+    ty, tx = box_gather_tiles(grid_hw, radius)
+    n_tiles = ty * tx
+    n = b * (2 * (n_tiles + 1) + _cdiv(l, _BOX_CHUNK) * n_tiles + 2 * l
+             + box_gather_max_pieces(l, grid_hw, radius))
+    if n >= 2 ** 31:
+        raise ValueError(f"box-window plan of {n} ints is too large")
+    return torch.empty((n,), dtype=torch.int32, device=device)
 
 
 # ------------------------------------------------------------- K4, K5 ------
@@ -227,11 +315,9 @@ def _box_bwd_launch(name, fn, q, k, v, centers, gf, lse, delta, outs,
 
 
 # K4 splits each key's list of contributions (the queries whose box covers
-# it) into pieces of at most this many, one warp each, and ranks its
-# queries in chunks of _BOX_CHUNK (csrc/box_window_attention_bwd.cu:
-# kPiece, kFillThreads).
+# it) into pieces of at most this many, one warp each
+# (csrc/box_window_attention_bwd.cu: kPiece).
 BOX_PIECE = 64
-_BOX_CHUNK = 256
 
 
 def box_dkv_max_pieces(len_q: int, len_kv: int, radius: int) -> int:
@@ -275,11 +361,16 @@ def box_window_attention_bwd_dq(q, k, v, centers, lse, delta, gf, grid_hw,
     """K5: f32 dq [B, L, H, D] of box-window attention from the forward's
     LSE, delta = rowsum(g * out) and the f32 output gradient gf (all
     contiguous, on the card; box_window_attention_bwd is the entry point
-    that also takes CPU tensors)."""
+    that also takes CPU tensors). Three launches, as K1's: the plan of
+    box_gather_schedule into its own int32 scratch, then the pieces."""
+    _check_gather_radius("box_window_attention_bwd_dq", radius)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    plan = _box_gather_scratch(q.shape[0], q.shape[1], grid_hw, radius,
+                               q.device)
     _box_bwd_launch("box_window_attention_bwd_dq",
                     load_library().gam_box_window_attention_bwd_dq, q, k, v,
-                    centers, gf, lse, delta, [dq], [], grid_hw, radius)
+                    centers, gf, lse, delta, [dq], [plan], grid_hw, radius,
+                    ints=(plan.numel(),))
     return dq
 
 
@@ -371,10 +462,6 @@ def box_window_attention(q, k, v, centers, grid_hw, radius: int = 2,
 # row's largest kept logit m; this bound keeps that so for |q.k| < ~8e3.
 _MAX_MKA_FILL = -1e4
 _MKA_TILE = 64  # queries or keys a tile of K2/K3 (csrc/gam_mma.cuh: kTile)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def _check_fill(name, mask_fill):

@@ -339,3 +339,128 @@ def test_box_dkv_kernel_splits_keys_into_pieces(dev, dtype, case):
     again = gk.box_window_attention_bwd_dkv(q, k, v, c, lse, delta, g,
                                             (hg, wg))
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+def _gather_centres(case, gen, hg, wg, l):
+    """[2, l, 2] int32 centres on an hg x wg grid that load K1's and K5's
+    plan (tiles of gk.BOX_TILE cells of the grid widened by r = 2, pieces of
+    gk.BOX_GATHER_PIECE queries) in one way each."""
+    c = torch.stack([torch.randint(0, wg, (2, l), generator=gen),
+                     torch.randint(0, hg, (2, l), generator=gen)],
+                    -1).to(torch.int32)
+    t, r, piece = gk.BOX_TILE, 2, gk.BOX_GATHER_PIECE
+    if case == "crowded_tile":
+        # 2 pieces + 5 queries in the tile of widened cells [2t, 3t)^2,
+        # on its 64 cells; a full piece and one more on a single cell
+        n = 2 * piece + 5
+        c[0, :n] = torch.randint(2 * t - r, 3 * t - r, (n, 2), generator=gen)
+        c[1, :piece + 1] = torch.tensor([wg // 2, hg // 2],
+                                        dtype=torch.int32)
+    elif case == "edges":
+        # every centre on a border band, partly off included: windows
+        # clamped at all four edges and in the corners
+        side = torch.randint(0, 4, (2, l), generator=gen)
+        band = torch.randint(-r, r + 1, (2, l), generator=gen)
+        c[..., 0] = torch.where(side == 0, band, c[..., 0])
+        c[..., 0] = torch.where(side == 1, wg - 1 + band, c[..., 0])
+        c[..., 1] = torch.where(side == 2, band, c[..., 1])
+        c[..., 1] = torch.where(side == 3, hg - 1 + band, c[..., 1])
+        c[0, :4] = torch.tensor([[-2, -2], [wg + 1, -2], [-2, hg + 1],
+                                 [wg + 1, hg + 1]], dtype=torch.int32)
+    elif case == "offgrid":
+        c[0, :100] = torch.tensor([-10, -10], dtype=torch.int32)  # fully off
+        c[0, 100:150] = torch.tensor([wg + r + 1, 3], dtype=torch.int32)
+        c[1, :50, 0] = -r                                # partly off
+        c[1, 50:100] = torch.tensor([wg + 1, hg + 1], dtype=torch.int32)
+    elif case == "empty_tiles":
+        # row 0 in two tiles only, row 1 with no query on the grid
+        c[0] = torch.randint(t - r, 2 * t - r, (l, 2), generator=gen)
+        c[0, ::3, 1] += 2 * t
+        c[1] = torch.tensor([wg + 5, hg + 5], dtype=torch.int32)
+    return c
+
+
+def _offgrid(c, hg, wg, r=2):
+    cx, cy = c[..., 0], c[..., 1]
+    return (cx + r < 0) | (cx - r > wg - 1) | (cy + r < 0) | (cy - r > hg - 1)
+
+
+def _check_gather_plan(case, c, hg, wg):
+    """The centres load the plan as the case says (by its torch mirror)."""
+    n, pieces, _ = gk.box_gather_schedule(c, (hg, wg))
+    off = _offgrid(c, hg, wg)
+    if case == "crowded_tile":
+        assert pieces.max() >= 3
+    elif case == "edges":
+        ty, tx = gk.box_gather_tiles((hg, wg))
+        n_t = n.view(2, ty, tx)
+        for edge in (n_t[:, 0], n_t[:, -1], n_t[:, :, 0], n_t[:, :, -1]):
+            assert (edge > 0).any()
+    elif case == "offgrid":
+        assert off[0].sum() == 150 and not off[1].any()
+    elif case == "empty_tiles":
+        assert (n[0] > 0).sum() == 2 and (n[1] == 0).all()
+    return off
+
+
+GATHER_CASES = ["crowded_tile", "edges", "offgrid", "empty_tiles"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_box_fwd_kernel_gather_plan(dev, dtype, case):
+    """K1 against its plain version where the gather plan's edges are: a
+    tile of several pieces, windows clamped at the grid's four edges, rows
+    whose box misses the grid (out 0, the all-masked LSE), tiles and a
+    batch row with no query. One count in LAUNCHES a call, the same bits
+    twice."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    hg, wg = 40, 44
+    l = hg * wg
+    c = _gather_centres(case, gen, hg, wg, l)
+    off = _check_gather_plan(case, c, hg, wg).to(dev)
+    c = c.to(dev)
+    q, k, v = (_rand(gen, (2, l, 4, 64), dt, dev) for _ in range(3))
+    gk.reset_launch_counts()
+    out, lse = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
+    assert gk.LAUNCHES["box_window_attention"] == 1
+    ref, ref_lse = gk.box_window_attention_plain(q, k, v, c, (hg, wg))
+    assert out.dtype == dt and lse.dtype == torch.float32
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    if (~off).any():
+        assert (lse - ref_lse)[~off].abs().max().item() <= 1e-4
+    assert (out[off] == 0).all() and torch.equal(lse[off], ref_lse[off])
+    again = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_box_dq_kernel_gather_plan(dev, dtype, case):
+    """K5 against the plain backward at the same plan edges as K1's test;
+    rows whose box misses the grid get dq = 0. One count in LAUNCHES a
+    call, the same bits twice."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(9)
+    hg, wg = 40, 44
+    l = hg * wg
+    c = _gather_centres(case, gen, hg, wg, l)
+    off = _check_gather_plan(case, c, hg, wg).to(dev)
+    c = c.to(dev)
+    q, k, v = (_rand(gen, (2, l, 4, 64), dt, dev) for _ in range(3))
+    g = _rand(gen, (2, l, 4, 64), torch.float32, dev)
+    out, lse = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
+    delta = (g * out.float()).sum(-1)
+    gk.reset_launch_counts()
+    dq = gk.box_window_attention_bwd_dq(q, k, v, c, lse, delta, g, (hg, wg))
+    assert gk.LAUNCHES["box_window_attention_bwd_dq"] == 1
+    ref = gk.box_window_attention_bwd_plain(q, k, v, c, out, lse, g,
+                                            (hg, wg))[0]
+    assert dq.dtype == torch.float32
+    assert _rel_err(dq.to(dt), ref) <= BWD_TOL[dt]
+    assert (dq[off] == 0).all()
+    again = gk.box_window_attention_bwd_dq(q, k, v, c, lse, delta, g,
+                                           (hg, wg))
+    assert torch.equal(dq, again)

@@ -234,6 +234,89 @@ def test_box_dkv_schedule_matches_brute_force(pattern):
         assert n.max() > 2 * gk.BOX_PIECE   # a key of three pieces or more
 
 
+def _gather_test_centres(pattern, b, hg, wg, seed):
+    """[b, hg * wg, 2] int32 centres for K1/K5's plan: the near-identity
+    homography of chip_smoke.py (each cell's corner pixel warped, floored
+    to a cell of 8 pixels), the two concentrated patterns, or uniform
+    centres with rows fully and partly off the grid."""
+    if pattern in ("collapsed", "zoom"):
+        return _concentrated_centres(pattern, b, hg, wg, seed)
+    rng = np.random.default_rng(seed)
+    y, x = np.divmod(np.arange(hg * wg), wg)
+    if pattern == "homography":
+        H = np.array([[0.95, 0.05, 12.0], [-0.04, 0.98, -6.0],
+                      [1e-5, 2e-5, 1.0]])
+        w = np.stack([8.0 * x, 8.0 * y, np.ones_like(x, float)], -1) @ H.T
+        c = np.floor(w[:, :2] / w[:, 2:] / 8).astype(np.int32)
+        return np.repeat(c[None], b, axis=0)
+    c = np.stack([rng.integers(-6, wg + 6, size=(b, hg * wg)),
+                  rng.integers(-6, hg + 6, size=(b, hg * wg))],
+                 -1).astype(np.int32)
+    c[0, :40] = (-10, -10)                       # fully off
+    c[1, :20] = (wg + 2, 3)                      # box misses by one cell
+    c[1, 20:40] = (wg + 1, hg + 1)               # partly off, a corner
+    c[-1, 40:60, 1] = -2                         # partly off, the top
+    return c
+
+
+@pytest.mark.parametrize("pattern", ["homography", "collapsed", "zoom",
+                                     "offgrid"])
+def test_box_gather_schedule_matches_brute_force(pattern):
+    """K1's and K5's split of the work, as the port mirrors it in torch:
+    per tile of BOX_TILE x BOX_TILE cells of the grid widened by r, the
+    queries whose centre lies in it (counted here tile by tile; a query
+    whose box misses the grid, by the dense box mask, lies in none),
+    ceil(n / BOX_GATHER_PIECE) pieces a tile, their exclusive scan, and no
+    more pieces than box_gather_max_pieces, which sizes the kernels'
+    grids. Every in-grid cell of a query's box lies in its tile's window
+    (the tile widened by r again, clamped to the grid, as
+    csrc/box_plan.cuh's find_piece computes it), of at most
+    (BOX_TILE + 2r)^2 cells: the window the kernels stage in shared memory
+    holds every key a query of the piece reads."""
+    hg, wg, r, T = 20, 27, 2, gk.BOX_TILE
+    centers = _gather_test_centres(pattern, 3, hg, wg, 11)
+    ty, tx = gk.box_gather_tiles((hg, wg), r)
+    assert (ty, tx) == (-(-(hg + 2 * r) // T), -(-(wg + 2 * r) // T))
+    cx, cy = centers[..., 0], centers[..., 1]
+    y, x = np.divmod(np.arange(hg * wg), wg)
+    box = ((np.abs(x[None, None] - cx[..., None]) <= r)
+           & (np.abs(y[None, None] - cy[..., None]) <= r))   # [B, L, S]
+    on = box.any(axis=2)
+    n_ref = np.zeros((3, ty * tx), np.int64)
+    for t_ in range(ty * tx):
+        gx, gy = (t_ % tx) * T - r, (t_ // tx) * T - r  # its centres' corner
+        n_ref[:, t_] = (on & (cx >= gx) & (cx < gx + T) & (cy >= gy)
+                        & (cy < gy + T)).sum(axis=1)
+    assert n_ref.sum() == on.sum()          # each such query in one tile
+    n, pieces, base = (x_.numpy() for x_ in gk.box_gather_schedule(
+        t(centers), (hg, wg), r))
+    np.testing.assert_array_equal(n, n_ref)
+    np.testing.assert_array_equal(
+        pieces, -(-n_ref // gk.BOX_GATHER_PIECE))
+    np.testing.assert_array_equal(base[:, 1:], np.cumsum(pieces, 1))
+    assert (base[:, 0] == 0).all()
+    assert base[:, -1].max() <= gk.box_gather_max_pieces(hg * wg, (hg, wg), r)
+    # the window of each query's tile holds its box's in-grid cells
+    bi, li = np.nonzero(on)
+    tile = ((cy[bi, li] + r) // T) * tx + (cx[bi, li] + r) // T
+    x0, y0 = (tile % tx) * T - 2 * r, (tile // tx) * T - 2 * r
+    wx0, wy0 = np.maximum(x0, 0), np.maximum(y0, 0)
+    wx1 = np.minimum(x0 + T + 2 * r - 1, wg - 1)
+    wy1 = np.minimum(y0 + T + 2 * r - 1, hg - 1)
+    assert ((wx1 - wx0 + 1) * (wy1 - wy0 + 1)).max() <= (T + 2 * r) ** 2
+    cells = box[bi, li]                                     # [Q, S]
+    inside = ((x[None] >= wx0[:, None]) & (x[None] <= wx1[:, None])
+              & (y[None] >= wy0[:, None]) & (y[None] <= wy1[:, None]))
+    assert not (cells & ~inside).any()
+    if pattern == "collapsed":
+        assert pieces.max() >= 2            # a tile of several pieces
+    if pattern in ("collapsed", "zoom"):
+        assert (n == 0).any()               # and tiles with none
+    if pattern == "offgrid":                # boxes fully and partly off
+        assert (~on).sum() >= 60
+        assert (on & ((cx < 0) | (cx >= wg) | (cy < 0) | (cy >= hg))).any()
+
+
 def test_autograd_functions_route_through_the_backwards():
     """backward() of the differentiable ops gives the explicit backwards'
     gradients; the centres and the mask get none, and no kernel runs on the
