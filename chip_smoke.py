@@ -44,7 +44,18 @@ Phases, each printing its own lines and its seconds:
    layers' gradients go through K4/K5;
 6. train parity: at 120x160 in f32 with full widths, one train step
    through the kernels against the same step through their plain versions
-   on the same card (loss and every parameter gradient).
+   on the same card (loss and every parameter gradient);
+7. eval path: image files written by the script (an 8-bit PNG and a P6
+   PPM of a textured pair, a 2-sequence HPatches fixture at 600x800) are
+   decoded back byte for byte, then ``infer`` through the command line, the
+   HPatches driver (imsize 480) and the homography fit run on the card
+   with phase 3's live-GAM model (random weights, bf16, K1 and K2), with
+   the launch counts read around each and the ms per pair of decoding,
+   forward and fit;
+8. eval trained: when checkpoints/tpu_r3_main/params_final.npz is there,
+   the self-check (40 pairs of 480x640, procedural and the held-out
+   photographs) through K1 and K2 in f32 and in bf16, each AUC held to its
+   CPU reference; when it is not, one line says so.
 
 K1, K4 and K5 (a plan and then the pieces, several launches a call) are
 timed on the device by CUDA-graph replay (kernel_ms), beside the time per
@@ -52,8 +63,10 @@ call of an eager loop by CUDA events (call_ms), which also holds the
 host's time per call where that is the longer; the other kernels by the
 event loop.
 
-The script reads no data file: weights come from a seed and images from
-numpy. It needs only the standard library, torch and numpy. Any failure
+Phases 1-7 read no data file: weights come from a seed and images from
+numpy (phase 7 decodes only files it wrote). Phase 8 reads the trained
+checkpoint and the held-out photographs through the port's own loaders.
+It needs only the standard library, torch and numpy. Any failure
 raises, so the exit code is nonzero; with no CUDA device it stops in
 phase 1. The last line of a successful run is one JSON object naming the
 device; the line before it lists the kernels.
@@ -63,9 +76,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -559,7 +574,7 @@ def phase_main_path(device):
               f"live-GAM forward, expected {want}")
     check(any(has_h), "the live-GAM request found no homography")
     _check_outputs(res, MAIN_HW)
-    return launches, ms_per_pair
+    return launches, ms_per_pair, live_model
 
 
 @contextlib.contextmanager
@@ -1298,6 +1313,321 @@ def phase_train_parity(device):
           f"train step loss differs by {loss_rel}")
     check(worst <= TRAIN_PARITY["grad_rel_l2"],
           f"gradient of {worst_name} differs by {worst} (relative L2)")
+# ------------------------------------------------------------ phase 7 ------
+
+EVAL_HW = ((427, 640), (480, 640))   # the infer pair: a PNG and a PPM
+FIXTURE_HW = (600, 800)              # HPatches-sized sequences
+FIXTURE_SEQS = ("i_smoke", "v_smoke")
+EVAL_IMSIZE = 480                    # the HPatches protocol's
+FIT_THR = 3.0
+
+
+def _png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit grey PNG of img [h, w] uint8 (no row filter)."""
+    import struct
+    import zlib
+
+    h, w = img.shape
+    raw = b"".join(b"\x00" + row.tobytes() for row in img)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _ppm_bytes(img: np.ndarray) -> bytes:
+    """A P6 PPM of a grey img [h, w] uint8 (R = G = B)."""
+    h, w = img.shape
+    return b"P6\n%d %d\n255\n" % (w, h) + np.repeat(
+        img[..., None], 3, -1).tobytes()
+
+
+def _u8(img: np.ndarray) -> np.ndarray:
+    return np.round(np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def _write_fixture(root, rng) -> None:
+    """Two sequences in the HPatches layout at FIXTURE_HW: 1.ppm ... 6.ppm
+    and H_1_k; i_smoke under small shifts, v_smoke under perspective
+    homographies."""
+    from geoformer_tpu_torch.data.native import native_warp
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+
+    h, w = FIXTURE_HW
+    corners = np.array([[0, 0], [w, 0], [w, h], [0, h]], float)
+    for s, name in enumerate(FIXTURE_SEQS):
+        d = root / name
+        d.mkdir()
+        base = textured_pair(FIXTURE_HW, 20 + s)[0]
+        (d / "1.ppm").write_bytes(_ppm_bytes(_u8(base)))
+        for k in range(2, 7):
+            shift = rng.uniform(-0.1 if s else -0.01, 0.1 if s else 0.01,
+                                (4, 2)) * [w, h]
+            A = []
+            for (x, y), (u, v) in zip(corners, corners + shift):
+                A += [[x, y, 1, 0, 0, 0, -u * x, -u * y, -u],
+                      [0, 0, 0, x, y, 1, -v * x, -v * y, -v]]
+            H = np.linalg.svd(np.array(A))[2][-1].reshape(3, 3)
+            H /= H[2, 2]
+            img = native_warp(base[None], H[None])[0]
+            (d / f"{k}.ppm").write_bytes(_ppm_bytes(_u8(img)))
+            np.savetxt(d / f"H_1_{k}", H)
+
+
+def _forward_launches(launches: dict, forwards: int, what: str) -> None:
+    for name, count in launches.items():
+        want = 4 * forwards if name in FORWARD_KERNELS else 0
+        check(count == want, f"{what}: {name} launched {count} times in "
+              f"{forwards} forwards, expected {want // forwards} each")
+
+
+@contextlib.contextmanager
+def _record_fits(hp):
+    """Within the block, each call of hp.fit_homography_np appends (number
+    of correspondences, whether it gave H, its ms up to a synchronize) to
+    the list it yields."""
+    fits = []
+    real = hp.fit_homography_np
+
+    def record(p0, *args, **kw):
+        t0 = time.perf_counter()
+        H, inliers = real(p0, *args, **kw)
+        torch.cuda.synchronize()
+        fits.append((len(p0), H is not None,
+                     (time.perf_counter() - t0) * 1e3))
+        return H, inliers
+
+    hp.fit_homography_np = record
+    try:
+        yield fits
+    finally:
+        hp.fit_homography_np = real
+
+
+def phase_eval_path(device, live_model):
+    """The evaluation path from image files on the card, with phase 3's
+    live-GAM weights (random, seed 0, coarse threshold LIVE_THR, bf16, K1
+    and K2): files written here (an 8-bit PNG and a P6 PPM of a textured
+    pair, a 2-sequence HPatches fixture) decode back byte for byte;
+    ``infer`` runs through the command line, and the matcher, the fit and
+    the HPatches driver on the card, each with 4 K1 and 4 K2 launches a
+    forward and none of K3-K5. Random weights leave a flat fine confidence,
+    so the matcher and the driver run with a fine threshold of 1e-3 to keep
+    final matches to fit; every pair with 4 or more gets a finite H, and
+    the fit also recovers a known H from 1024 synthetic matches."""
+    import contextlib as ctx
+    import dataclasses
+    import io
+    import tempfile
+    import warnings
+
+    from geoformer_tpu_torch import cli
+    from geoformer_tpu_torch.eval import hpatches as hp
+    from geoformer_tpu_torch.eval.image_io import read_gray
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher, load_gray
+    from geoformer_tpu_torch.eval.metrics import corner_error
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+    from geoformer_tpu_torch.models import GeoFormer
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.train.checkpoint import save_params
+
+    live = live_model.config
+    cfg = live.replace(fine_match=dataclasses.replace(live.fine_match,
+                                                      thr=1e-3))
+    model = GeoFormer(cfg)
+    model.load_state_dict(live_model.state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        img0 = _u8(textured_pair(EVAL_HW[0], 0)[0])
+        img1 = _u8(textured_pair(EVAL_HW[1], 0)[1])
+        paths = (tmp / "pair0.png", tmp / "pair1.ppm")
+        paths[0].write_bytes(_png_bytes(img0))
+        paths[1].write_bytes(_ppm_bytes(img1))
+        for path, img in zip(paths, (img0, img1)):
+            check(np.array_equal(read_gray(str(path)), img),
+                  f"{path.name} decodes to other bytes")
+        t0 = time.perf_counter()
+        (im0, sc0), (im1, sc1) = (load_gray(str(p), EVAL_IMSIZE)
+                                  for p in paths)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(im1, img1.astype(np.float32) / 255),
+              "load_gray changed an image it need not resize")
+        check(im0.shape == (424, 640) and sc0 == (1.0, 427 / 424),
+              f"load_gray of the PNG: {im0.shape} {sc0}")
+
+        # the command line, as a user runs it, with the live weights
+        save_params(str(tmp / "random.npz"), live_model, 0)
+        out = io.StringIO()
+        gk.reset_launch_counts()
+        with ctx.redirect_stdout(out):
+            cli.main(["infer", str(paths[0]), str(paths[1]), "--ckpt",
+                      str(tmp / "random.npz"), "--match-thr", str(LIVE_THR),
+                      "--bf16", "--pallas", "--device", str(device),
+                      "--out", str(tmp / "m.npy")])
+        torch.cuda.synchronize()
+        _forward_launches(dict(gk.LAUNCHES), 1, "infer")
+        infer_line = out.getvalue().splitlines()[0]
+        saved = np.load(tmp / "m.npy")
+        check(saved.ndim == 2 and saved.shape[1] == 5
+              and bool(np.isfinite(saved).all()), "infer's saved matches")
+        check("has_H=True" in infer_line, f"infer: {infer_line}")
+
+        # the pair through the matcher and the fit, each timed
+        matcher = BatchedMatcher(cfg, model, batch_size=1, device=device)
+        matcher.match_batch([im0], [im1])           # the bucket's first call
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (mk0, mk1, conf, geo), = matcher.match_batch([im0], [im1],
+                                                     return_geo=True)
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        _forward_launches(dict(gk.LAUNCHES), 1, "match_batch")
+        for a in (mk0, mk1, conf, geo["H"]):
+            check(bool(np.isfinite(a).all()), "non-finite matcher output")
+        check(len(mk0) >= 4, f"{len(mk0)} final matches on the infer pair")
+        with _record_fits(hp) as fits:
+            for _ in range(2):                       # a warm-up, then timed
+                H, inliers = hp.fit_homography_np(mk0, mk1, FIT_THR,
+                                                  device=device)
+        check(H is not None and bool(np.isfinite(H).all()),
+              "the fit failed on the infer pair")
+
+        # the fit at the HPatches driver's scale: 1024 matches, a third
+        # of them wrong, under a known homography
+        rng = np.random.default_rng(0)
+        H_true = np.array([[0.9, 0.08, 20.0], [-0.05, 1.1, -12.0],
+                           [2e-4, -1e-4, 1.0]])
+        p0 = rng.random((1024, 2)) * [640, 480]
+        ph = np.concatenate([p0, np.ones((1024, 1))], 1) @ H_true.T
+        p1 = ph[:, :2] / ph[:, 2:] + rng.normal(0, 0.5, (1024, 2))
+        p1[:341] = rng.random((341, 2)) * [640, 480]
+        with _record_fits(hp) as fits_1024:
+            for _ in range(2):
+                H_syn, _ = hp.fit_homography_np(p0.astype(np.float32),
+                                                p1.astype(np.float32),
+                                                FIT_THR, device=device)
+        syn_err = corner_error(H_true, H_syn, (480, 640))
+        check(syn_err < 1.0, f"the fit missed a known H by {syn_err} px")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                hp.fit_homography_np(p0.astype(np.float32),
+                                     p1.astype(np.float32), FIT_THR,
+                                     device=device)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        fit_syncs = sum("synchroniz" in str(w.message) for w in caught)
+        log("eval_path_infer", line=repr(infer_line), matches=len(mk0),
+            has_H=geo["has_H"], gam_inliers=geo["num_inliers"],
+            fit_inliers=int(inliers.sum()),
+            load_ms_per_pair=f"{load_ms:.2f}", forward_ms=f"{fwd_ms:.2f}",
+            fit_ms=f"{fits[-1][2]:.2f}",
+            fit_1024_ms=f"{fits_1024[-1][2]:.2f}",
+            fit_1024_corner_px=f"{syn_err:.4f}", fit_host_syncs=fit_syncs)
+
+        root = tmp / "hpatches"
+        root.mkdir()
+        _write_fixture(root, np.random.default_rng(0))
+        lines = []
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _record_fits(hp) as fits:
+            res = hp.eval_hpatches(model, cfg, str(root), imsize=EVAL_IMSIZE,
+                                   ransac_thr=FIT_THR, log=lines.append,
+                                   device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the prewarm's one forward a bucket, then each sequence's five
+        # pairs in batches of two
+        forwards = int(lines[0].split()[1]) + len(FIXTURE_SEQS) * math.ceil(
+            5 / 2)
+        _forward_launches(dict(gk.LAUNCHES), forwards, "eval_hpatches")
+    log("eval_path_hpatches", size=f"{FIXTURE_HW[0]}x{FIXTURE_HW[1]}",
+        imsize=EVAL_IMSIZE, pairs=res["n_pairs"], est_failed=res["est_failed"],
+        matches=[n for n, _, _ in fits], has_fit=[ok for _, ok, _ in fits],
+        match_ms_per_pair=f"{res['match_time'] * 1e3:.2f}",
+        fit_ms_per_pair=f"{np.mean([ms for _, _, ms in fits]):.2f}",
+        wall_ms_per_pair=f"{wall * 1e3 / res['n_pairs']:.2f}",
+        inlier_rate=f"{res['inlier_rate']:.4f}", auc_a=res.get("auc_a"),
+        forwards=forwards, census=repr(lines[0]))
+    check(res["n_pairs"] == 10, "the HPatches fixture was not read")
+    check(all(ok for n, ok, _ in fits if n >= 4),
+          "a fixture pair with 4 or more matches got no homography")
+    check(all(math.isfinite(x) for k in ("auc_a", "correct_a")
+              for x in res[k]), "non-finite HPatches metrics")
+
+
+# ------------------------------------------------------------ phase 8 ------
+
+REPO = Path(__file__).resolve().parent
+CKPT = REPO / "checkpoints" / "tpu_r3_main" / "params_final.npz"
+SELFCHECK = dict(pairs=40, hw=(480, 640), seed=123456, ransac_thr=3.0)
+SELFCHECK_SETS = ("procedural", "held-out-photos")
+# AUC@1/3/5/10 references of the self-check on its own pairs (the port's
+# make_pairs), measured on a CPU by tests/torch_port_selfcheck_compare.py
+# (PERF.md §6): f32, the port's mean over 3 GAM seeds x 3 fit
+# seeds; bf16, the JAX package's bf16 forward (its CPU path, no Pallas)
+# over 3 fit keys.
+SELFCHECK_REF = {
+    ("procedural", "float32"): (0.6446, 0.8544, 0.9066, 0.9515),
+    ("held-out-photos", "float32"): (0.6571, 0.8665, 0.9099, 0.9425),
+    ("procedural", "bfloat16"): (0.6402, 0.8462, 0.9022, 0.9464),
+    ("held-out-photos", "bfloat16"): (0.6617, 0.8685, 0.9111, 0.9431),
+}
+# f32: the spread of the CPU runs of the same pairs (the largest range,
+# over both image sets, of the port's 9 runs and JAX's 3), since the card
+# draws the GAM's and the fit's samples from other streams; bf16: 0.03 at
+# 1 px and 0.02 at 3/5/10 px of the JAX package's bf16.
+SELFCHECK_TOL = {"float32": (0.0182, 0.0146, 0.0212, 0.0231),
+                 "bfloat16": (0.03, 0.02, 0.02, 0.02)}
+
+
+def phase_eval_trained(device):
+    """The self-check with the trained checkpoint, when it is there: 40
+    pairs at 480x640, procedural and held-out photographs, through K1 and
+    K2 in f32 and in bf16, each AUC held to its CPU reference."""
+    from geoformer_tpu_torch.eval import selfcheck as sc
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    if not CKPT.is_file():
+        print(f"[eval_trained] absent path={CKPT}", flush=True)
+        return
+    pairs = {name: sc.make_pairs(
+        SELFCHECK["pairs"], SELFCHECK["hw"], SELFCHECK["seed"],
+        [name] if name != "procedural" else None) for name in SELFCHECK_SETS}
+    forwards = math.ceil(SELFCHECK["pairs"] / sc.BATCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        model = sc.load_model(sc.selfcheck_config(
+            bf16=dtype == torch.bfloat16, pallas=True), str(CKPT), device)
+        for image_set, (base, warped, Hs) in pairs.items():
+            gk.reset_launch_counts()
+            res = sc.run_pairs(model, base, warped, Hs,
+                               SELFCHECK["ransac_thr"], device)
+            torch.cuda.synchronize()
+            launches = dict(gk.LAUNCHES)
+            rec = sc.summary(res)
+            ref = SELFCHECK_REF[(image_set, name)]
+            delta = [round(a - b, 4) for a, b in zip(rec["auc@1/3/5/10"], ref)]
+            log("eval_trained", dtype=name, images=image_set,
+                pairs=rec["pairs"], auc=rec["auc@1/3/5/10"], ref_auc=ref,
+                delta=delta, tol=SELFCHECK_TOL[name],
+                correct=rec["correct@1/3/5/10"],
+                mean_matches=rec["mean_matches"], failed=rec["failed"],
+                forward_ms_per_pair=f"{res['match_s'] * 1e3 / rec['pairs']:.2f}",
+                fit_ms_per_pair=f"{res['fit_s'] * 1e3 / rec['pairs']:.2f}",
+                launches=launches)
+            _forward_launches(launches, forwards, f"selfcheck {image_set}")
+            check(all(abs(d) <= t for d, t in zip(delta, SELFCHECK_TOL[name])),
+                  f"self-check {name} {image_set}: AUC {rec['auc@1/3/5/10']}"
+                  f" against {ref}")
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -1335,11 +1665,14 @@ def main() -> int:
         return out
 
     fwd_results = timed("kernels", phase_kernels, device)
-    launches, ms_per_pair = timed("main_path", phase_main_path, device)
+    launches, ms_per_pair, live_model = timed("main_path", phase_main_path,
+                                              device)
     timed("small_parity", phase_small_parity, device)
     bwd_results = timed("bwd_kernels", phase_backward_kernels, device)
     train_launches, ms_step = timed("training", phase_training, device)
     timed("train_parity", phase_train_parity, device)
+    timed("eval_path", phase_eval_path, device, live_model)
+    timed("eval_trained", phase_eval_trained, device)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

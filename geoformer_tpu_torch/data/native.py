@@ -1,4 +1,5 @@
-"""ctypes binding of the repository's texture generator (cpp/synthgen.cpp).
+"""ctypes binding of the repository's texture generator (cpp/synthgen.cpp):
+texture banks and the homography warp of host images.
 
 The port's own binding: it compiles ``cpp/synthgen.cpp`` with ``g++`` at
 first use into ``geoformer_tpu_torch/_build/<hash of the source and
@@ -70,6 +71,11 @@ def load_library() -> ctypes.CDLL:
                            ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
                            ctypes.c_int]
             fn.restype = None
+        lib.synthgen_warp.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int]
+        lib.synthgen_warp.restype = None
         _lib = lib
     return _lib
 
@@ -96,3 +102,20 @@ def native_textures_mixed(batch: int, h: int, w: int, seed: int,
     """[batch, h, w] float32 training bank: structured, dead-leaves and fBm
     textures by index % 3."""
     return _textures("synthgen_textures_mixed", batch, h, w, seed, n_blobs)
+
+
+def native_warp(src: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """Warp [B, h, w] images by per-sample homographies [B, 3, 3] on the
+    host (bilinear, zeros outside; cv2.warpPerspective's convention:
+    dst(p) = src(H^-1 p), with H^-1 taken in float64)."""
+    src = np.ascontiguousarray(src, np.float32)
+    if src.ndim != 3 or np.shape(H) != (len(src), 3, 3):
+        raise ValueError(f"native_warp: images {src.shape}, H {np.shape(H)}")
+    b, h, w = src.shape
+    Hinv = np.ascontiguousarray(np.linalg.inv(np.asarray(H, np.float64)))
+    dst = np.empty_like(src)
+    load_library().synthgen_warp(
+        src.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        dst.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        Hinv.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), b, h, w)
+    return dst

@@ -1,10 +1,11 @@
 """Self-supervised homography pairs from procedural textures.
 
-Counterpart of make_pair_batch and base_image_stream in
+Counterpart of make_pair_batch, load_image_dir and base_image_stream in
 geoformer_tpu/data/synthetic.py: the host supplies base grayscale images
-(the procedural bank of cpp/synthgen.cpp); homography sampling, warping,
-photometric jitter, coarse validity masks and the 50 % pair swap run as
-tensor ops on the device of the base images.
+(the procedural bank of cpp/synthgen.cpp, an image directory, or a mix of
+both); homography sampling, warping, photometric jitter, coarse validity
+masks and the 50 % pair swap run as tensor ops on the device of the base
+images.
 
 Every random number of make_pair_batch is one entry of a dict of draws
 (``pair_draws``), which a caller may give instead of a generator, so that a
@@ -13,6 +14,8 @@ test can hand both packages the same numbers.
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -23,6 +26,7 @@ from geoformer_tpu_torch.data.native import (
     native_textures,
     native_textures_mixed,
 )
+from geoformer_tpu_torch.eval.image_io import read_gray
 from geoformer_tpu_torch.geometry.homography import (
     grid_points,
     sample_homography,
@@ -30,6 +34,7 @@ from geoformer_tpu_torch.geometry.homography import (
     warp_points,
 )
 from geoformer_tpu_torch.ops.image_warp import warp_image
+from geoformer_tpu_torch.ops.resize import resize_linear_u8
 
 
 def pair_draws(b: int, hw: Tuple[int, int], generator=None,
@@ -108,29 +113,57 @@ def make_pair_batch(base: torch.Tensor, generator=None, coarse_scale: int = 8,
             "mask1": torch.where(s3, mask0, mask1)}
 
 
+def load_image_dir(root: str, hw: Tuple[int, int]) -> Optional[np.ndarray]:
+    """[n, H, W] float32 grey images in [0, 1] of every *.jpg, *.png and
+    *.ppm file under ``root`` (sorted, recursive), each resized to hw as
+    cv2.resize does; None if there is none. Unlike the JAX package, which
+    skips the files cv2 cannot read, a file the port cannot decode (JPEG
+    above all) raises ValueError."""
+    paths = sorted(sum((glob.glob(os.path.join(root, "**", e), recursive=True)
+                        for e in ("*.jpg", "*.png", "*.ppm")), []))
+    if not paths:
+        return None
+    return np.stack([resize_linear_u8(read_gray(p), hw).astype(np.float32)
+                     / 255.0 for p in paths])
+
+
 def base_image_stream(hw: Tuple[int, int], batch: int, seed: int = 0,
                       image_dir: Optional[str] = None,
                       texture_style: str = "mixed",
                       image_fraction: float = 1.0,
                       bank_size: int = 256,
                       bank_refresh: int = 0) -> Iterator[np.ndarray]:
-    """Endless stream of [batch, H, W] float32 base images drawn from a
-    procedural bank of ``bank_size`` textures ("mixed": structured,
-    dead-leaves and fBm; "structured": the first family only), made by
-    cpp/synthgen.cpp from ``seed``; the draws use numpy's default_rng(seed),
-    as in the JAX package, so both packages yield the same images from the
-    same bank. Image directories (and so image_fraction) and bank_refresh
-    are not ported yet."""
-    if image_dir is not None:
-        raise NotImplementedError("image directories are not ported yet "
-                                  "(the JAX package reads them with cv2)")
+    """Endless stream of [batch, H, W] float32 base images, as the JAX
+    package draws them with numpy's default_rng(seed): from the images of
+    ``image_dir`` (load_image_dir) with per-sample probability
+    ``image_fraction``, the rest from a procedural bank of ``bank_size``
+    textures made by cpp/synthgen.cpp from ``seed`` ("mixed": structured,
+    dead-leaves and fBm; "structured": the first family only). An empty or
+    absent image directory means the procedural bank alone. bank_refresh is
+    not ported yet."""
     if bank_refresh:
         raise NotImplementedError("bank_refresh is not ported yet")
     if texture_style not in ("mixed", "structured"):
         raise ValueError(f"texture_style {texture_style!r}")
     rng = np.random.default_rng(seed)
-    gen = native_textures_mixed if texture_style == "mixed" \
-        else native_textures
-    bank = gen(bank_size, hw[0], hw[1], seed)
+    img_bank = load_image_dir(image_dir, hw) if image_dir else None
+    if img_bank is None:
+        image_fraction = 0.0
+    proc_bank = None
+    if image_fraction < 1.0:
+        gen = native_textures_mixed if texture_style == "mixed" \
+            else native_textures
+        proc_bank = gen(bank_size, hw[0], hw[1], seed)
     while True:
-        yield bank[rng.integers(0, len(bank), size=batch)]
+        if proc_bank is None:
+            yield img_bank[rng.integers(0, len(img_bank), size=batch)]
+        elif image_fraction <= 0.0:
+            yield proc_bank[rng.integers(0, len(proc_bank), size=batch)]
+        else:
+            use_img = rng.random(batch) < image_fraction
+            out = proc_bank[rng.integers(0, len(proc_bank), size=batch)].copy()
+            n_img = int(use_img.sum())
+            if n_img:
+                out[use_img] = img_bank[
+                    rng.integers(0, len(img_bank), size=n_img)]
+            yield out

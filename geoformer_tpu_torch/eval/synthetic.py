@@ -1,8 +1,8 @@
 """A synthetic image pair with a known homography, made from a seed.
 
-Used by chip_smoke.py and the profiling script: the card's machine reads no
-image file, so inputs are a multi-scale noise texture (numpy draws, torch
-upsampling) and its warp by a known homography.
+Used by chip_smoke.py and the profiling script, whose inputs are made, not
+read: a multi-scale noise texture (numpy draws, torch upsampling) and its
+warp by a known homography.
 """
 
 from __future__ import annotations

@@ -2,16 +2,17 @@
 
 Counterpart of run_training in geoformer_tpu/train/loop.py, with its
 parameters and defaults: base images from the procedural texture bank
-(cpp/synthgen.cpp), homography pairs made on the device (data/synthetic.py),
-one train step per batch (train/trainer.py), one JSON metrics line per logged
-step, printed and appended to ``<ckpt_dir>/metrics.jsonl``, and
-``params_final.npz`` at the end. It runs on the card unless the caller asks
+(cpp/synthgen.cpp) and, with ``image_dir``, from the image files there in
+the share ``image_fraction``, homography pairs made on the device
+(data/synthetic.py), one train step per batch (train/trainer.py), one JSON
+metrics line per logged step, printed and appended to
+``<ckpt_dir>/metrics.jsonl``, and ``params_final.npz`` at the end. It runs on the card unless the caller asks
 for the CPU (``device="cpu"``).
 
 Not ported yet, and raising NotImplementedError when set: resume and orbax
 state checkpoints (``ckpt_every < steps``, which would ask for one before
-the end), validation (``val_every``), tensorboard and match figures, image
-directories, sensor augmentation and bank refresh.
+the end), validation (``val_every``), tensorboard and match figures, sensor
+augmentation and bank refresh.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def run_training(
     device="cuda",
 ):
     """Train for ``steps`` steps; returns the TrainState."""
-    waiting = {"image_dir": image_dir is not None, "resume": resume,
+    waiting = {"resume": resume,
                "val_every": bool(val_every), "tensorboard": tensorboard,
                "log_figures": log_figures, "sensor_aug": sensor_aug,
                "bank_refresh": bool(bank_refresh),
@@ -94,6 +95,7 @@ def run_training(
     step_fn = make_train_step(tcfg)
 
     stream = base_image_stream(image_hw, batch_size, seed,
+                               image_dir=image_dir,
                                texture_style=texture_style,
                                image_fraction=image_fraction,
                                bank_size=bank_size)

@@ -464,3 +464,121 @@ def test_box_dq_kernel_gather_plan(dev, dtype, case):
     again = gk.box_window_attention_bwd_dq(q, k, v, c, lse, delta, g,
                                            (hg, wg))
     assert torch.equal(dq, again)
+
+
+# ------------------------------------------------- the evaluation path ----
+
+def _correspondences(n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    H = np.array([[0.9, 0.08, 20.0], [-0.05, 1.1, -12.0], [2e-4, -1e-4, 1]])
+    p0 = rng.random((n, 2)) * [640, 480]
+    ph = np.concatenate([p0, np.ones((n, 1))], 1) @ H.T
+    p1 = ph[:, :2] / ph[:, 2:] + rng.normal(0, 0.5, (n, 2))
+    p1[rng.choice(n, n // 3, replace=False)] = rng.random((n // 3, 2)) * 600
+    return p0.astype(np.float32), p1.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [6, 300, 1024])
+def test_fit_homography_on_the_card_matches_the_cpu(dev, n):
+    """The same injected hypotheses on the card and on the CPU: H within
+    1e-4 relative (the same f32 solves; cuSOLVER's eigh against LAPACK's),
+    the same inliers."""
+    import numpy as np
+
+    from geoformer_tpu_torch.eval.hpatches import (
+        fit_capacity,
+        fit_homography_np,
+    )
+
+    p0, p1 = _correspondences(n, n)
+    g = torch.Generator().manual_seed(n)
+    m = fit_capacity(n)
+    scores = torch.rand((2048, m), generator=g)
+    scores[:, n:] = -1.0
+    idx = scores.topk(4, dim=-1).indices.numpy()
+    H_gpu, inl_gpu = fit_homography_np(p0, p1, 3.0, device=dev,
+                                       sample_idx=idx)
+    H_cpu, inl_cpu = fit_homography_np(p0, p1, 3.0, device="cpu",
+                                       sample_idx=idx)
+    assert H_gpu is not None and H_cpu is not None
+    np.testing.assert_allclose(H_gpu, H_cpu, rtol=1e-4,
+                               atol=1e-4 * np.abs(H_cpu).max())
+    np.testing.assert_array_equal(inl_gpu, inl_cpu)
+    H_own, _ = fit_homography_np(p0, p1, 3.0, device=dev, seed=1)
+    assert H_own is not None and np.isfinite(H_own).all()
+
+
+def test_prewarm_then_match_batch_launch_k1_k2_per_forward(dev):
+    """The bench model (random weights) with both GAM kernels at low coarse
+    and fine thresholds, so that random weights leave matches: the
+    prewarm's forward and each match_batch forward launch K1 and K2 four
+    times each and no backward kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.config import bench_config
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+    from geoformer_tpu_torch.models import GeoFormer
+
+    base = bench_config(use_bf16=True)
+    cfg = base.replace(match=dataclasses.replace(base.match, thr=1e-6),
+                       fine_match=dataclasses.replace(base.fine_match,
+                                                      thr=1e-3))
+    model = weights.random_init(GeoFormer(cfg), seed=0)
+    matcher = BatchedMatcher(cfg, model, batch_size=2, device=dev)
+    pairs = [textured_pair((120, 160), s) for s in range(3)]
+    gk.reset_launch_counts()
+    matcher.prewarm([((120, 160), (120, 160))], log=lambda *a: None)
+    assert gk.LAUNCHES["box_window_attention"] == 4
+    assert gk.LAUNCHES["masked_kv_attention"] == 4
+    gk.reset_launch_counts()
+    res = matcher.match_batch([a for a, _ in pairs], [b for _, b in pairs],
+                              return_geo=True)
+    forwards = 2                                   # 3 pairs, batches of 2
+    for name, count in gk.LAUNCHES.items():
+        want = 4 * forwards if name in ("box_window_attention",
+                                        "masked_kv_attention") else 0
+        assert count == want, (name, count)
+    assert len(res) == 3 and sum(len(r[0]) for r in res) > 0
+    for mk0, mk1, conf, geo in res:
+        assert mk0.shape == mk1.shape and conf.shape == mk0.shape[:1]
+        for a in (mk0, mk1, conf, geo["H"]):
+            assert np.isfinite(a).all()
+
+
+def test_load_gray_reads_written_png_and_ppm(dev, tmp_path):
+    """Files written here (an 8-bit grey PNG, a P6 PPM of a grey image)
+    come back byte for byte; the card test runs where cv2 is absent."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from geoformer_tpu_torch.eval.image_io import read_gray, read_size
+    from geoformer_tpu_torch.eval.matcher import load_gray
+
+    img = np.random.default_rng(0).integers(0, 256, (48, 64), np.uint8)
+    raw = b"".join(b"\x00" + row.tobytes() for row in img)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    (tmp_path / "a.png").write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", 64, 48, 8, 0, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    (tmp_path / "b.ppm").write_bytes(
+        b"P6\n64 48\n255\n" + np.repeat(img[..., None], 3, -1).tobytes())
+    for name in ("a.png", "b.ppm"):
+        path = str(tmp_path / name)
+        np.testing.assert_array_equal(read_gray(path), img)
+        assert read_size(path) == (48, 64)
+        im, scale = load_gray(path, 480)
+        assert scale == (1.0, 1.0)
+        np.testing.assert_array_equal(im, img.astype(np.float32) / 255.0)

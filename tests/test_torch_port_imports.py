@@ -63,10 +63,17 @@ def test_every_port_module_imports_without_jax():
 
 
 def test_chip_smoke_reads_no_data_file():
+    """No data file of the repository but the trained checkpoint, which
+    phase 8 reads through the port's loader (and, with it, the held-out
+    photographs through the port's self-check); the files phase 7 decodes
+    it writes itself."""
     src = (ROOT / "chip_smoke.py").read_text()
-    for word in ("checkpoints", ".npz", "np.load", "imread", "open(",
-                 ".png", ".jpg", "torch.load"):
+    for word in ("imread", "open(", ".jpg", "torch.load", "load_npz",
+                 "holdout"):
         assert word not in src, word
+    assert src.count('"checkpoints"') == 1
+    assert ('CKPT = REPO / "checkpoints" / "tpu_r3_main" / '
+            '"params_final.npz"') in src
 
 
 def _run_smoke(cwd, script):

@@ -172,9 +172,14 @@ def test_native_texture_bank_and_stream():
     for _ in range(2):
         np.testing.assert_array_equal(
             next(stream), bank[rng.integers(0, 4, size=3)])
-    for kw in (dict(image_dir="x"), dict(bank_refresh=5)):
-        with pytest.raises(NotImplementedError):
-            next(base_image_stream((48, 64), 3, **kw))
+    # a directory without images leaves the procedural bank alone
+    stream = base_image_stream((48, 64), 3, seed=7, bank_size=4,
+                               image_dir="no-such-dir")
+    rng = np.random.default_rng(7)
+    np.testing.assert_array_equal(next(stream),
+                                  bank[rng.integers(0, 4, size=3)])
+    with pytest.raises(NotImplementedError):
+        next(base_image_stream((48, 64), 3, bank_refresh=5))
 
 
 def _homographies(b, seed):

@@ -330,11 +330,10 @@ def test_run_training_two_steps_on_the_cpu(run, tmp_path):
 
 
 @pytest.mark.parametrize("option", ["resume", "val_every", "tensorboard",
-                                    "image_dir", "sensor_aug",
-                                    "bank_refresh", "log_figures"])
+                                    "sensor_aug", "bank_refresh",
+                                    "log_figures"])
 def test_run_training_raises_on_options_not_ported(option, tmp_path):
-    value = {"val_every": 5, "image_dir": "images",
-             "bank_refresh": 10}.get(option, True)
+    value = {"val_every": 5, "bank_refresh": 10}.get(option, True)
     with pytest.raises(NotImplementedError, match=option):
         run_training(steps=1, ckpt_dir=str(tmp_path), device="cpu",
                      **{option: value})

@@ -86,3 +86,71 @@ def smooth_images(rng: np.random.Generator, b: int, h: int, w: int,
 def assert_close(actual, expected, rtol: float, atol: float, what=""):
     np.testing.assert_allclose(n(actual), n(expected), rtol=rtol, atol=atol,
                                err_msg=what)
+
+
+def jax_forward_and_draws(cfg, variables, img0, img1, key, mask0=None,
+                          mask1=None):
+    """The JAX GeoFormer.apply output of a batch and the GAM's RANSAC
+    samples [B, iters, 4] that this forward drew (the key it takes with
+    make_rng("ransac"), split per row as _build_geo_state splits it, then
+    ransac.py:110-112 on the first-pass matches), for injection into the
+    port."""
+    import jax
+    import jax.numpy as jnp
+
+    from geoformer_tpu.models import GeoFormer as JGeoFormer
+    from geoformer_tpu.models.coarse_matching import coarse_match
+
+    model = JGeoFormer(cfg)
+    m = (None, None) if mask0 is None else (jnp.asarray(mask0),
+                                            jnp.asarray(mask1))
+    out, st = jax.jit(lambda v, a, b, k, m0, m1: model.apply(
+        v, a, b, m0, m1, rngs={"ransac": k}, capture_intermediates=True,
+        mutable=["intermediates"]))(variables, jnp.asarray(img0),
+                                    jnp.asarray(img1), key, *m)
+    b = img0.shape[0]
+    f0, f1 = st["intermediates"]["loftr_coarse"]["__call__"][0]
+    flat_m = [None if x is None else x.reshape(b, -1) for x in m]
+    matches1 = coarse_match(f0, f1, cfg.match.thr,
+                            cfg.match.dsmax_temperature,
+                            cfg.match.max_matches, *flat_m, streaming=True)
+    rkey = model.apply(variables, method=lambda mod: mod.make_rng("ransac"),
+                       rngs={"ransac": key})
+    iters = cfg.geo.ransac_iters
+
+    def draw(k, v):
+        g = jax.random.gumbel(k, (iters, v.shape[0]))
+        return jax.lax.top_k(jnp.where(v[None, :], g, -jnp.inf), 4)[1]
+
+    sample_idx = np.asarray(jax.vmap(draw)(jax.random.split(rkey, b),
+                                           matches1.valid))
+    return out, sample_idx
+
+
+def jax_fit_sample_idx(n, seed, iters=2048, cap=4096):
+    """The [iters, 4] sample indices the JAX fit_homography_np draws for n
+    correspondences from jax.random.key(seed) (gumbel + top_k over the
+    valid entries of its padded point set)."""
+    import jax
+    import jax.numpy as jnp
+
+    from geoformer_tpu_torch.eval.hpatches import fit_capacity
+
+    m = fit_capacity(n, cap)
+    g = jax.random.gumbel(jax.random.key(seed), (iters, m))
+    valid = jnp.arange(m) < min(n, cap)
+    return np.asarray(jax.lax.top_k(jnp.where(valid[None], g, -jnp.inf),
+                                    4)[1])
+
+
+def match_bar(ref_ids, ref_kp, got_ids, got_kp):
+    """The JAX package's parity bar for one pair (__graft_entry__.py):
+    (overlap of the (i, j) match sets, largest keypoint distance over the
+    common matches). *_ids: [K, 2] int (i, j) of valid matches; *_kp:
+    [K, 4] (x0, y0, x1, y1) in the same order."""
+    ref = {tuple(r): k for r, k in zip(ref_ids.tolist(), ref_kp)}
+    got = {tuple(r): k for r, k in zip(got_ids.tolist(), got_kp)}
+    common = ref.keys() & got.keys()
+    overlap = len(common) / max(len(ref.keys() | got.keys()), 1)
+    kp = max((np.abs(ref[c] - got[c]).max() for c in common), default=0.0)
+    return overlap, float(kp)
