@@ -55,7 +55,20 @@ Phases, each printing its own lines and its seconds:
 8. eval trained: when checkpoints/tpu_r3_main/params_final.npz is there,
    the self-check (40 pairs of 480x640, procedural and the held-out
    photographs) through K1 and K2 in f32 and in bf16, each AUC held to its
-   CPU reference; when it is not, one line says so.
+   CPU reference; when it is not, one line says so;
+9. training loop: run_training at the headline recipe with every option of
+   the loop on (state checkpoints every 2 steps, validation every 2 steps,
+   TensorBoard events and match figures, the sensor stack, bank refresh
+   every 3 batches) for 4 steps, then resumed to 6: the restored state
+   against the first run's bit for bit, the checkpoint directories, the
+   metrics.jsonl steps and the event files (read back with the port's
+   reader), K1-K5 at 4 launches a train step and K1/K2 at 4 (K3-K5 at 0)
+   a val step, the ms of each train and val step, checkpoint save and
+   restore, and bank build; one `cli train --pallas` in a subprocess; and,
+   when the trained checkpoint is there, the val step on it through K1/K2
+   over three RANSAC seeds, held to the same steps on the host's CPU on the
+   same batch (the bar: the CPU runs' spread over the seeds, or a stated
+   floor where that is narrower).
 
 K1, K4 and K5 (a plan and then the pieces, several launches a call) are
 timed on the device by CUDA-graph replay (kernel_ms), beside the time per
@@ -65,7 +78,8 @@ event loop.
 
 Phases 1-7 read no data file: weights come from a seed and images from
 numpy (phase 7 decodes only files it wrote). Phase 8 reads the trained
-checkpoint and the held-out photographs through the port's own loaders.
+checkpoint and the held-out photographs through the port's own loaders,
+phase 9 the checkpoint; phase 9 writes only under a temporary directory.
 It needs only the standard library, torch and numpy. Any failure
 raises, so the exit code is nonzero; with no CUDA device it stops in
 phase 1. The last line of a successful run is one JSON object naming the
@@ -1628,6 +1642,333 @@ def phase_eval_trained(device):
                   f" against {ref}")
 
 
+# ------------------------------------------------------------ phase 9 ------
+
+# Run A: the headline recipe with every option of the loop on; Run B
+# resumes it. ckpt_every and val_every 2 give a checkpoint and a validation
+# after steps 2 and 4 (and 6 in Run B); bank_refresh 3 rebuilds the bank
+# once in Run A (before its 4th batch).
+LOOP = dict(steps_a=4, steps_b=6, ckpt_every=2, val_every=2, bank_refresh=3)
+VAL_SEEDS = (0, 1, 2)       # RANSAC generator seeds of the trained val step
+VAL_B = 2                   # pairs of the trained val step (card and CPU)
+# the least bar of each trained val scalar (|card mean - CPU mean|) where
+# the CPU runs' spread over VAL_SEEDS is narrower: f32 sums in another
+# order (relative for the losses and matches, px for the corner error)
+VAL_FLOOR = {"val_loss": 1e-3, "val_loss_c": 1e-3, "val_loss_d": 1e-3,
+             "val_loss_f": 1e-3, "val_num_matches": 1e-2,
+             "val_corner_err_median": 0.05, "val_fit_rate": 0.0}
+VAL_RELATIVE = ("val_loss", "val_loss_c", "val_loss_d", "val_loss_f",
+                "val_num_matches")
+
+
+@contextlib.contextmanager
+def _instrumented(loop_mod, gk, reference=None):
+    """Within the block, run_training's train and val steps record the
+    launches and the synchronized ms of each call, its checkpoint saves
+    their ms, each restore its ms and whether the state it returns equals
+    ``reference`` bit for bit, and the texture banks their seconds."""
+    from geoformer_tpu_torch.data import synthetic
+
+    rec = {"train": [], "val": [], "save_ms": [], "restore": [],
+           "bank_s": []}
+    saved = {name: getattr(loop_mod, name) for name in (
+        "make_train_step", "make_val_step", "save_checkpoint",
+        "restore_checkpoint")}
+    bank = synthetic._procedural_bank
+
+    def counted(kind, fn):
+        def call(*args, **kwargs):
+            before = dict(gk.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec[kind].append(((time.perf_counter() - t0) * 1e3, {
+                k: v - before[k] for k, v in gk.LAUNCHES.items()}))
+            return out
+        return call
+
+    def save(*args, **kwargs):
+        t0 = time.perf_counter()
+        saved["save_checkpoint"](*args, **kwargs)
+        rec["save_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def restore(*args, **kwargs):
+        t0 = time.perf_counter()
+        st = saved["restore_checkpoint"](*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["restore"].append(((time.perf_counter() - t0) * 1e3,
+                               reference is not None
+                               and _same_state(st, reference)))
+        return st
+
+    def build_bank(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = bank(*args, **kwargs)
+        rec["bank_s"].append((time.perf_counter() - t0, out.shape))
+        return out
+
+    loop_mod.make_train_step = lambda *a: counted(
+        "train", saved["make_train_step"](*a))
+    loop_mod.make_val_step = lambda *a: counted(
+        "val", saved["make_val_step"](*a))
+    loop_mod.save_checkpoint = save
+    loop_mod.restore_checkpoint = restore
+    synthetic._procedural_bank = build_bank
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(loop_mod, name, fn)
+        synthetic._procedural_bank = bank
+
+
+def _same_state(a, b) -> bool:
+    """Bit for bit: model variables, both AdamW moments, the step counts."""
+    if a.step != b.step:
+        return False
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if any(not torch.equal(sa[k], sb[k]) for k in sa):
+        return False
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    return all(torch.equal(a.optimizer.state[pa[k]][slot],
+                           b.optimizer.state[pb[k]][slot])
+               for k in pa for slot in ("exp_avg", "exp_avg_sq", "step"))
+
+
+def _metrics_steps(ckpt_dir: Path):
+    return [json.loads(ln)["step"] for ln in
+            (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def _per_call_launches(records, kind, expect, steps):
+    check(len(records) == steps, f"{steps} {kind} steps expected, "
+          f"{len(records)} ran")
+    for i, (_, launches) in enumerate(records):
+        for name, count in launches.items():
+            want = expect.get(name, 0)
+            check(count == want, f"{kind} step {i}: {name} launched {count} "
+                  f"times, expected {want}")
+
+
+def _val_batch(device, b):
+    """The loop's held-out validation batch (base images from seed +
+    9999), its pairs drawn on the host so that the card and the CPU get
+    the same batch."""
+    from geoformer_tpu_torch.data.synthetic import (
+        base_image_stream,
+        make_pair_batch,
+        pair_draws,
+    )
+
+    base = torch.from_numpy(next(base_image_stream(
+        TRAIN_HW, b, TRAIN_SEED + 9999)))
+    draws = pair_draws(b, TRAIN_HW, torch.Generator().manual_seed(
+        TRAIN_SEED + 777))
+    return make_pair_batch(base.to(device), draws={
+        k: v.to(device) for k, v in draws.items()})
+
+
+def _profile_val(val_fn, state, batch, device) -> dict:
+    """One profiled val step: its device time in all and the three kernels
+    that take the most of it, with their launch counts."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        val_fn(state, batch, generator=torch.Generator(device).manual_seed(0))
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {}
+    for e in prof.events():
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False):
+            continue
+        ms, count = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                           / 1e3, count + 1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+    return {"device_ms": round(sum(ms for ms, _ in kernels.values()), 1),
+            "top": [(name[:60], round(ms, 1), count)
+                    for name, (ms, count) in top]}
+
+
+def _trained_val(device):
+    """The val step on the trained checkpoint through K1/K2 on the card,
+    over VAL_SEEDS, held to the same step on the host's CPU (the plain
+    versions) over the same seeds on the same batch."""
+    from geoformer_tpu_torch.config import TrainConfig
+    from geoformer_tpu_torch.eval import selfcheck as sc
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.train.optim import make_optimizer
+    from geoformer_tpu_torch.train.trainer import TrainState, make_val_step
+
+    if not CKPT.is_file():
+        print(f"[training_loop_trained_val] absent path={CKPT}", flush=True)
+        return None
+    tcfg = TrainConfig(batch_size=VAL_B, image_hw=TRAIN_HW)
+    val_fn = make_val_step(tcfg)
+    runs, ms = {}, {"cuda": [], "cpu": []}
+    for where in ("cuda", "cpu"):
+        dev = device if where == "cuda" else torch.device("cpu")
+        model = sc.load_model(headline_config(), str(CKPT), dev)
+        state = TrainState(model, make_optimizer(tcfg.optim,
+                                                 model.parameters()))
+        batch = _val_batch(dev, VAL_B)
+        runs[where] = []
+        for seed in VAL_SEEDS:
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = val_fn(state, batch,
+                         generator=torch.Generator(dev).manual_seed(seed))
+            runs[where].append({k: float(v) for k, v in out.items()})
+            ms[where].append((time.perf_counter() - t0) * 1e3)
+            if where == "cuda":
+                _forward_launches(dict(gk.LAUNCHES), 1, "trained val step")
+        if where == "cuda":
+            profile = _profile_val(val_fn, state, batch, dev)
+        del state, model
+    torch.cuda.empty_cache()
+    rows = {}
+    for key in VAL_FLOOR:
+        card = [r[key] for r in runs["cuda"]]
+        cpu = [r[key] for r in runs["cpu"]]
+        mean_cpu = sum(cpu) / len(cpu)
+        floor = VAL_FLOOR[key] * (abs(mean_cpu) if key in VAL_RELATIVE
+                                  else 1.0)
+        bar = max(max(cpu) - min(cpu), floor)
+        delta = sum(card) / len(card) - mean_cpu
+        rows[key] = dict(card=card, cpu=cpu, delta=round(delta, 6),
+                         bar=round(bar, 6))
+        check(all(math.isfinite(x) for x in card + cpu),
+              f"trained val step: non-finite {key}")
+        check(abs(delta) <= bar, f"trained val step {key}: card {card} "
+              f"against CPU {cpu}, bar {bar}")
+    log("training_loop_trained_val", config="headline, trained checkpoint, "
+        f"val batch B={VAL_B}", seeds=VAL_SEEDS,
+        card_ms=[f"{x:.1f}" for x in ms["cuda"]],
+        cpu_ms=[f"{x:.1f}" for x in ms["cpu"]], card_profile=profile, **rows)
+
+
+def phase_training_loop(device, phase5_ms_step):
+    """run_training at the headline recipe with every option on (Run A:
+    checkpoints, validation, TensorBoard events and figures, the sensor
+    stack, bank refresh), then Run B resuming it; the launches per train
+    and per val step; the restored state against Run A's; one `cli train`
+    in a subprocess; and the val step on the trained checkpoint against
+    the CPU."""
+    import io
+    import tempfile
+
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.train import checkpoint as ck
+    from geoformer_tpu_torch.train import loop
+    from geoformer_tpu_torch.utils.tb_events import read_events
+
+    cfg = headline_config()
+    kw = dict(batch_size=TRAIN_B, image_hw=TRAIN_HW, log_every=1,
+              seed=TRAIN_SEED, model_cfg=cfg, bank_size=256,
+              ckpt_every=LOOP["ckpt_every"], val_every=LOOP["val_every"],
+              tensorboard=True, log_figures=True, sensor_aug=True,
+              bank_refresh=LOOP["bank_refresh"], device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp) / "run"
+        buf = io.StringIO()
+        gk.reset_launch_counts()
+        with _instrumented(loop, gk) as rec_a, \
+                contextlib.redirect_stdout(buf):
+            state_a = loop.run_training(steps=LOOP["steps_a"],
+                                        ckpt_dir=str(out_dir), **kw)
+        launches_a = dict(gk.LAUNCHES)
+        with _instrumented(loop, gk, reference=state_a) as rec_b, \
+                contextlib.redirect_stdout(buf):
+            state_b = loop.run_training(steps=LOOP["steps_b"], resume=True,
+                                        ckpt_dir=str(out_dir), **kw)
+        printed = buf.getvalue()
+        steps_on_disk = sorted(ck.checkpoint_steps(str(out_dir)))
+        ckpt_mb = (out_dir / str(LOOP["steps_a"]) / ck.STATE_FILE) \
+            .stat().st_size / 1e6
+        metric_steps = _metrics_steps(out_dir)
+        events = [ev for f in sorted((out_dir / "tb").iterdir())
+                  for ev in read_events(str(f))]
+        cli_dir = Path(tmp) / "cli"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "geoformer_tpu_torch.cli", "train",
+             "--pallas", "--steps", "2", "--batch", "2", "--device", "cuda",
+             "--out", str(cli_dir)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        cli_files = sorted(p.name for p in cli_dir.iterdir()) \
+            if cli_dir.is_dir() else []
+
+    # Run A: 4 train steps, 2 val steps, 2 figure forwards (K1/K2 only)
+    train_k = {name: 4 for name in gk.LAUNCHES}
+    val_k = {name: 4 for name in FORWARD_KERNELS}
+    _per_call_launches(rec_a["train"], "train", train_k, LOOP["steps_a"])
+    n_val_a = LOOP["steps_a"] // LOOP["val_every"]
+    _per_call_launches(rec_a["val"], "val", val_k, n_val_a)
+    for name, count in launches_a.items():
+        want = 4 * LOOP["steps_a"] + (
+            8 * n_val_a if name in FORWARD_KERNELS else 0)
+        check(count == want, f"Run A launched {name} {count} times, "
+              f"expected {want} (4 a train step, 4 a val step and 4 a "
+              "figure forward for K1/K2)")
+    _per_call_launches(rec_b["train"], "train", train_k,
+                       LOOP["steps_b"] - LOOP["steps_a"])
+    _per_call_launches(rec_b["val"], "val", val_k, 1)
+    (restore_ms, restored_same), = rec_b["restore"]
+    check(restored_same, "Run B did not restore Run A's state bit for bit")
+    check(state_b.step == LOOP["steps_b"], f"Run B ended at {state_b.step}")
+    check(f"resumed at step {LOOP['steps_a']}" in printed,
+          "Run B did not print its resume line")
+    check(steps_on_disk == [2, 4, 6], f"checkpoints {steps_on_disk}")
+    check(metric_steps == [1, 2, 2, 3, 4, 4, 5, 6, 6],
+          f"metrics.jsonl steps {metric_steps}")
+    scalars = {(v["tag"], ev["step"]) for ev in events
+               for v in ev.get("values", []) if "simple_value" in v}
+    images = [(v["description"], ev["step"]) for ev in events
+              for v in ev.get("values", []) if "image" in v]
+    check(len(scalars) == 6 * 9 + 3 * 7 and len(images) == 3,
+          f"event files: {len(scalars)} scalars, {len(images)} images")
+    check(all(math.isfinite(v["simple_value"]) or v["tag"]
+              == "val_corner_err_median" for ev in events
+              for v in ev.get("values", []) if "simple_value" in v),
+          "non-finite scalar in the event file")
+    # Run A: the val bank, its bank, the refresh; Run B: the val bank, its
+    # bank (its 2 batches come before a refresh)
+    check(len(rec_a["bank_s"]) == 3 and len(rec_b["bank_s"]) == 2,
+          f"banks built: {len(rec_a['bank_s'])} + {len(rec_b['bank_s'])}")
+    check(cli.returncode == 0, f"cli train failed:\n{cli.stderr[-3000:]}")
+    check({"2", "metrics.jsonl", "params_final.npz"} <= set(cli_files),
+          f"cli train wrote {cli_files}")
+    train_ms = [t for t, _ in rec_a["train"] + rec_b["train"]]
+    val_ms = [t for t, _ in rec_a["val"] + rec_b["val"]]
+    val_lines = [json.loads(ln) for ln in printed.splitlines()
+                 if ln.startswith('{"val_')]
+    log("training_loop", config="headline(480x640,f32,batch4,K1-K5)+"
+        "ckpt_every2,val_every2,tensorboard,log_figures,sensor_aug,"
+        "bank_refresh3", run_a_steps=LOOP["steps_a"],
+        run_b_steps=LOOP["steps_b"],
+        train_step_ms=[f"{x:.1f}" for x in train_ms],
+        ms_per_step_after_first=f"{sum(train_ms[1:]) / len(train_ms[1:]):.1f}",
+        phase5_ms_per_step=f"{phase5_ms_step:.1f}",
+        val_step_ms=[f"{x:.1f}" for x in val_ms],
+        ckpt_save_ms=[f"{x:.1f}" for x in rec_a["save_ms"] + rec_b["save_ms"]],
+        ckpt_restore_ms=f"{restore_ms:.1f}", ckpt_mb=f"{ckpt_mb:.1f}",
+        bank_s=[f"{t:.2f}" for t, _ in rec_a["bank_s"] + rec_b["bank_s"]],
+        bank_shapes=[list(s) for _, s in rec_a["bank_s"] + rec_b["bank_s"]],
+        checkpoints=steps_on_disk, metrics_steps=metric_steps,
+        event_scalars=len(scalars), event_images=images,
+        launches_run_a=launches_a,
+        launches_per_train_step=rec_a["train"][0][1],
+        launches_per_val_step=rec_a["val"][0][1],
+        val=[{k: round(v, 4) for k, v in m.items()} for m in val_lines],
+        cli_s=f"{cli_s:.1f}", cli_files=cli_files,
+        restored_bit_exact=restored_same)
+    del state_a, state_b
+    torch.cuda.empty_cache()
+    _trained_val(device)
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -1673,6 +2014,7 @@ def main() -> int:
     timed("train_parity", phase_train_parity, device)
     timed("eval_path", phase_eval_path, device, live_model)
     timed("eval_trained", phase_eval_trained, device)
+    timed("training_loop", phase_training_loop, device, ms_step)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

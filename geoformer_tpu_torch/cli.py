@@ -1,8 +1,10 @@
-"""Command line of the port: infer, eval (HPatches) and parity.
+"""Command line of the port: train, infer, eval (HPatches) and parity.
 
 Counterpart of the same subcommands of geoformer_tpu/cli.py, with its flags
 and defaults, plus ``--device`` (default ``cuda``):
 
+    python -m geoformer_tpu_torch.cli train --pallas --batch 4 --out ckpt \\
+        [--steps 12000] [--val-every 500 --tensorboard] [--resume]
     python -m geoformer_tpu_torch.cli infer img0.png img1.png \\
         --ckpt checkpoints/tpu_r3_main/params_final.npz [--out m.npy]
     python -m geoformer_tpu_torch.cli eval hpatches --data <root> --ckpt ...
@@ -70,6 +72,45 @@ def _hpatches(args, data, imsize, ransac_thr):
     return eval_hpatches(model, cfg, data, imsize=imsize,
                          ransac_thr=ransac_thr, max_seqs=args.max_seqs,
                          device=args.device)
+
+
+def cmd_train(args):
+    from geoformer_tpu_torch.config import (
+        GeoFormerConfig,
+        GeoModuleConfig,
+        MatchConfig,
+    )
+    from geoformer_tpu_torch.train.loop import run_training
+
+    model_cfg = GeoFormerConfig(
+        match=MatchConfig(max_matches=args.max_matches, force_one_match=True),
+        geo=GeoModuleConfig(ransac_iters=args.gam_ransac_iters,
+                            max_inliers=args.gam_max_inliers,
+                            use_pallas=args.pallas),
+        use_bf16=args.bf16,
+    )
+    run_training(
+        image_dir=args.data,
+        steps=args.steps,
+        batch_size=args.batch,
+        image_hw=(args.height, args.width),
+        ckpt_dir=args.out,
+        log_every=args.log_every,
+        seed=args.seed,
+        model_cfg=model_cfg,
+        lr=args.lr,
+        warmup_steps=args.warmup,
+        resume=args.resume,
+        val_every=args.val_every,
+        tensorboard=args.tensorboard,
+        texture_style=args.texture_style,
+        image_fraction=args.data_mix,
+        log_figures=args.log_figures,
+        sensor_aug=args.sensor_aug,
+        bank_size=args.bank_size,
+        bank_refresh=args.bank_refresh,
+        device=args.device,
+    )
 
 
 def cmd_eval(args):
@@ -150,6 +191,51 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--int8", action="store_true")
         sp.add_argument("--int8-full", action="store_true")
         sp.add_argument("--device", default="cuda")
+
+    t = sub.add_parser("train")
+    t.add_argument("--data", default=None, help="image dir (else procedural)")
+    t.add_argument("--data-mix", type=float, default=1.0,
+                   help="with --data: per-sample probability of drawing from "
+                        "the image dir (rest procedural); 1.0 = images only")
+    t.add_argument("--steps", type=int, default=1000)
+    t.add_argument("--batch", type=int, default=8)
+    t.add_argument("--height", type=int, default=480)
+    t.add_argument("--width", type=int, default=640)
+    t.add_argument("--out", default="checkpoints")
+    t.add_argument("--log-every", type=int, default=50)
+    t.add_argument("--seed", type=int, default=66)
+    t.add_argument("--max-matches", type=int, default=512)
+    t.add_argument("--gam-ransac-iters", type=int, default=256)
+    t.add_argument("--gam-max-inliers", type=int, default=512)
+    t.add_argument("--lr", type=float, default=0.0,
+                   help="override true LR (default: canonical*bs/64)")
+    t.add_argument("--warmup", type=int, default=0,
+                   help="override warmup in actual steps")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from the newest state checkpoint in --out")
+    t.add_argument("--bank-size", type=int, default=256,
+                   help="procedural texture bank size")
+    t.add_argument("--bank-refresh", type=int, default=0,
+                   help="regenerate the procedural bank every N steps "
+                        "(0 = fixed bank)")
+    t.add_argument("--sensor-aug", action="store_true",
+                   help="camera-realism augmentation on both views "
+                        "(defocus/vignette/shot-read-noise/JPEG)")
+    t.add_argument("--texture-style", choices=("mixed", "structured"),
+                   default="mixed",
+                   help="procedural bank family mix")
+    t.add_argument("--val-every", type=int, default=0)
+    t.add_argument("--tensorboard", action="store_true",
+                   help="scalars (and figures) to an event file in <out>/tb")
+    t.add_argument("--log-figures", action="store_true",
+                   help="a val-batch match figure at each validation "
+                        "(with --tensorboard and --val-every)")
+    t.add_argument("--bf16", action="store_true",
+                   help="bf16 compute path (params stay f32)")
+    t.add_argument("--pallas", action="store_true",
+                   help="the hand-written GAM kernels (K1-K5)")
+    t.add_argument("--device", default="cuda")
+    t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("eval")
     e.add_argument("benchmark", choices=list(_EVAL_PROTOCOLS))

@@ -5,8 +5,9 @@ The port's own binding: it compiles ``cpp/synthgen.cpp`` with ``g++`` at
 first use into ``geoformer_tpu_torch/_build/<hash of the source and
 flags>/libsynthgen.so`` (through a temporary directory renamed into place,
 so concurrent first uses do not collide) and never writes into ``cpp/``.
-The flags are those of ``cpp/Makefile``. A failed build raises; the numpy
-texture fallback of the JAX package is not ported.
+The flags are those of ``cpp/Makefile``. A failed build raises; where
+there is no compiler, build raises NoCompiler and the texture bank falls
+back to the numpy textures (data/synthetic.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread",
 _lib: Optional[ctypes.CDLL] = None
 
 
+class NoCompiler(FileNotFoundError):
+    """No C++ compiler to build the generator with (neither $CXX nor g++)."""
+
+
 def build() -> Path:
     """Compile the generator if this version of the source has no
     library; returns the library's path. Raises if g++ fails."""
@@ -43,7 +48,7 @@ def build() -> Path:
         return lib_path
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
-        raise FileNotFoundError("g++ not found: cannot build cpp/synthgen.cpp")
+        raise NoCompiler("g++ not found: cannot build cpp/synthgen.cpp")
     tmp = BUILD_DIR / f"tmp-synthgen-{digest}-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)

@@ -1,13 +1,13 @@
 """Homography helpers, batched.
 
-Counterpart of grid_points, warp_points, four_point_homography, _solve8
-and sample_homography in geoformer_tpu/geometry/homography.py. Warps are
-explicit multiply-adds in f32 (as in the JAX package); the 8x8 solve is an
-unrolled Gauss-Jordan with partial pivoting that gives inf/nan on singular
-systems instead of raising, so callers can test finiteness as the JAX
-package does. The random draws of sample_homography come from a
-torch.Generator, or are given, so that a test can hand both packages the
-same draws.
+Counterpart of grid_points, warp_points, four_point_homography, _solve8,
+sample_homography and corner_error in
+geoformer_tpu/geometry/homography.py. Warps are explicit multiply-adds in
+f32 (as in the JAX package); the 8x8 solve is an unrolled Gauss-Jordan
+with partial pivoting that gives inf/nan on singular systems instead of
+raising, so callers can test finiteness as the JAX package does. The
+random draws of sample_homography come from a torch.Generator, or are
+given, so that a test can hand both packages the same draws.
 """
 
 from __future__ import annotations
@@ -116,3 +116,16 @@ def sample_homography(draws, image_hw, small_warp_p: float = 0.2,
     return torch.where((u[:, 0] < flip_p)[:, None, None],
                        torch.where((u[:, 1] < 0.6)[:, None, None], flip,
                                    H @ flip), H)
+
+
+def corner_error(H_pred: torch.Tensor, H_gt: torch.Tensor,
+                 image_hw) -> torch.Tensor:
+    """Mean distance of the four image corners ((0, 0) to (w - 1, h - 1))
+    warped through H_pred and through H_gt, in f32: H [..., 3, 3] -> [...]
+    (the HPatches homography error)."""
+    h, w = image_hw
+    corners = torch.tensor([[0, 0], [0, h - 1], [w - 1, 0], [w - 1, h - 1]],
+                           dtype=torch.float32, device=H_pred.device)
+    a = warp_points(corners, H_pred)
+    b = warp_points(corners, H_gt)
+    return torch.linalg.norm(a - b, dim=-1).mean(-1)

@@ -1,12 +1,14 @@
 """Training state and the self-supervised homography train step.
 
-Counterpart of init_state, make_train_step and TrainState in
-geoformer_tpu/train/trainer.py. One step: the train-mode forward (BatchNorm
-on batch statistics over the 2B images, updating the running ones; the
-force-one-match rule), sparse coarse GT and fine labels from the pair's
-homography, the streaming GeoLoss, the backward (through the GAM kernels'
-backwards K3-K5 on the card), optax's global-norm clip, and AdamW at the
-step's LR. The validation step, the depth steps and data parallelism
+Counterpart of init_state, make_train_step, make_val_step and TrainState
+in geoformer_tpu/train/trainer.py. One step: the train-mode forward
+(BatchNorm on batch statistics over the 2B images, updating the running
+ones; the force-one-match rule), sparse coarse GT and fine labels from the
+pair's homography, the streaming GeoLoss, the backward (through the GAM
+kernels' backwards K3-K5 on the card), optax's global-norm clip, and AdamW
+at the step's LR. The validation step: the same losses from the
+inference-mode forward, and a RANSAC fit on each pair's fine matches scored
+by its corner error. The depth steps and data parallelism
 (shard_train_step) are not ported yet.
 """
 
@@ -19,6 +21,8 @@ import torch
 
 from geoformer_tpu_torch import weights
 from geoformer_tpu_torch.config import GeoFormerConfig, TrainConfig
+from geoformer_tpu_torch.geometry.homography import corner_error
+from geoformer_tpu_torch.geometry.ransac import ransac_homography
 from geoformer_tpu_torch.models import GeoFormer
 from geoformer_tpu_torch.train.loss import geo_loss_streaming
 from geoformer_tpu_torch.train.optim import (
@@ -106,3 +110,67 @@ def make_train_step(tcfg: TrainConfig):
         return scalars
 
     return train_step
+
+
+def jnp_median(x: torch.Tensor) -> torch.Tensor:
+    """The median as jnp.median takes it: the middle sorted value for an odd
+    count, the mean of the two middle ones for an even count (so that one
+    inf among them gives inf), nan if any value is nan. (torch.median
+    returns the lower middle value; torch.quantile gives nan for inf.)"""
+    v = torch.sort(x.reshape(-1)).values
+    k = v.numel()
+    mid = v[k // 2] if k % 2 else (v[k // 2 - 1] + v[k // 2]) / 2
+    return torch.where(torch.isnan(v).any(), torch.full_like(mid, torch.nan),
+                       mid)
+
+
+def make_val_step(tcfg: TrainConfig):
+    """Returns val_step(state, batch, sample_idx=None, fit_idx=None,
+    generator=None) -> scalars.
+
+    The inference-mode forward (BatchNorm on the running statistics), the
+    train step's losses renamed val_* (no update), then per pair a RANSAC
+    fit of the fine matches (thr 3, 256 hypotheses, 2 refinement rounds)
+    scored by its corner error against H_0to1, a failed fit counting as
+    inf: val_corner_err_median (jnp_median), val_fit_rate, and
+    val_num_matches (fine matches per pair). The GAM's RANSAC samples are
+    ``sample_idx`` [B, ransac_iters, 4] and the fit's ``fit_idx``
+    [B, 256, 4] when given, else both are drawn from ``generator`` (the
+    GAM's first). The scalars are 0-d f32 tensors on the device."""
+    H, W = tcfg.image_hw
+
+    @torch.no_grad()
+    def val_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                 sample_idx: Optional[torch.Tensor] = None,
+                 fit_idx: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        model = state.model
+        cfg = model.config
+        wc = W // cfg.coarse_scale
+        mask0, mask1 = batch.get("mask0"), batch.get("mask1")
+        out = model(batch["image0"], batch["image1"], mask0, mask1,
+                    sample_idx=sample_idx, generator=generator, train=False,
+                    return_feats=True)
+        gt_j, gt_valid = spvs_coarse_homography_sparse(
+            batch["H_0to1"], batch["H_1to0"], (H, W), cfg.coarse_scale,
+            mask0, mask1)
+        fine_gt = spvs_fine_homography(
+            out.matches, batch["H_0to1"], wc, wc, cfg.coarse_scale,
+            cfg.fine_scale, cfg.fine_match.window_size)
+        _, scalars = geo_loss_streaming(
+            out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,
+            out.matches.valid, tcfg.loss, cfg.match.dsmax_temperature,
+            mask0, mask1, sp_axis=cfg.seq_axis)
+        val = {f"val_{k}": v.float() for k, v in scalars.items()}
+        fit = ransac_homography(out.fine.mkpts0, out.fine.mkpts1,
+                                out.fine.valid, thr=3.0, iters=256,
+                                refine_iters=2, sample_idx=fit_idx,
+                                generator=generator)
+        errs = corner_error(fit["H"], batch["H_0to1"], (H, W))
+        errs = torch.where(fit["ok"], errs, torch.full_like(errs, torch.inf))
+        val["val_corner_err_median"] = jnp_median(errs)
+        val["val_fit_rate"] = fit["ok"].float().mean()
+        val["val_num_matches"] = out.fine.valid.sum(-1).float().mean()
+        return val
+
+    return val_step

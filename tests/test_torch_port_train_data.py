@@ -153,9 +153,10 @@ def test_make_pair_batch_from_a_generator():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert a["image0"].min() >= 0 and a["image1"].max() <= 1
     d = pair_draws(2, HW, torch.Generator().manual_seed(3))
-    assert d["noise"].shape == (2, *HW)
-    with pytest.raises(NotImplementedError):
-        make_pair_batch(base, sensor=True)
+    assert d["noise"].shape == (2, *HW) and "sensor0" not in d
+    s = make_pair_batch(base, torch.Generator().manual_seed(3), sensor=True)
+    assert all(torch.equal(a[k], s[k]) for k in ("H_0to1", "mask1"))
+    assert not torch.equal(a["image0"], s["image0"])
 
 
 def test_native_texture_bank_and_stream():
@@ -178,8 +179,14 @@ def test_native_texture_bank_and_stream():
     rng = np.random.default_rng(7)
     np.testing.assert_array_equal(next(stream),
                                   bank[rng.integers(0, 4, size=3)])
-    with pytest.raises(NotImplementedError):
-        next(base_image_stream((48, 64), 3, bank_refresh=5))
+    # bank_refresh=1: every batch after the first from the bank of a new seed
+    stream = base_image_stream((48, 64), 3, seed=7, bank_size=4,
+                               bank_refresh=1)
+    rng = np.random.default_rng(7)
+    for i in range(3):
+        bank_i = native.native_textures_mixed(4, 48, 64, 7 + 1009 * i)
+        np.testing.assert_array_equal(next(stream),
+                                      bank_i[rng.integers(0, 4, size=3)])
 
 
 def _homographies(b, seed):

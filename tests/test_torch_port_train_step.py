@@ -329,24 +329,6 @@ def test_run_training_two_steps_on_the_cpu(run, tmp_path):
     assert set(flat) - {"step"} == set(run["flat"])
 
 
-@pytest.mark.parametrize("option", ["resume", "val_every", "tensorboard",
-                                    "sensor_aug", "bank_refresh",
-                                    "log_figures"])
-def test_run_training_raises_on_options_not_ported(option, tmp_path):
-    value = {"val_every": 5, "bank_refresh": 10}.get(option, True)
-    with pytest.raises(NotImplementedError, match=option):
-        run_training(steps=1, ckpt_dir=str(tmp_path), device="cpu",
-                     **{option: value})
-
-
-def test_run_training_raises_on_state_checkpoints_before_the_end(tmp_path):
-    """A state checkpoint every ckpt_every < steps steps is not ported:
-    asking for one raises instead of silently writing nothing."""
-    with pytest.raises(NotImplementedError, match="ckpt_every"):
-        run_training(steps=2, ckpt_every=1, ckpt_dir=str(tmp_path),
-                     device="cpu")
-
-
 def test_init_state_makes_a_model_on_the_device():
     cfg = port_config(small_config())
     state = init_state(cfg, tcfg.TrainConfig(), seed=3, device="cpu")
