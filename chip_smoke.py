@@ -68,7 +68,18 @@ Phases, each printing its own lines and its seconds:
    when the trained checkpoint is there, the val step on it through K1/K2
    over three RANSAC seeds, held to the same steps on the host's CPU on the
    same batch (the bar: the CPU runs' spread over the seeds, or a stated
-   floor where that is narrower).
+   floor where that is narrower);
+10. FIRE/ISC from JPEG: when the trained checkpoint is there, the standing
+   FIRE/ISC gate's corpora (eval/fire_isc_protocol.py) built at full size
+   into a temporary directory (a stated subset: 7 FIRE pairs at 1024^2, 8
+   ISC pairs, 16 classification lines), every JPEG decoded, the decoder's
+   round trips at q95 held to the quantisation bounds, then `cli eval
+   fire`, `eval isc` and `eval isc-cls` in bf16 through K1 and K2, held
+   to the gate's thresholds (FIRE mAUC >= 0.99 with no failed pair, ISC
+   AUC@3 >= 0.97, EER <= 0.05), 4 launches of K1 and K2 a forward, the ms
+   per pair of decoding, resizing, forward and fit; and K1 and K2 against
+   their plain versions at the FIRE grid (B=1, 96x96) and a portrait ISC
+   bucket (B=2, 72x64), each beside its bound.
 
 K1, K4 and K5 (a plan and then the pieces, several launches a call) are
 timed on the device by CUDA-graph replay (kernel_ms), beside the time per
@@ -79,7 +90,8 @@ event loop.
 Phases 1-7 read no data file: weights come from a seed and images from
 numpy (phase 7 decodes only files it wrote). Phase 8 reads the trained
 checkpoint and the held-out photographs through the port's own loaders,
-phase 9 the checkpoint; phase 9 writes only under a temporary directory.
+phase 9 the checkpoint; phase 9 writes only under a temporary directory,
+as phase 10 does (its corpora are built there and decoded back).
 It needs only the standard library, torch and numpy. Any failure
 raises, so the exit code is nonzero; with no CUDA device it stops in
 phase 1. The last line of a successful run is one JSON object naming the
@@ -1969,6 +1981,255 @@ def phase_training_loop(device, phase5_ms_step):
     _trained_val(device)
 
 
+# ------------------------------------------------------------ phase 10 -----
+
+# The standing FIRE/ISC gate's corpora (eval/fire_isc_protocol.py) at full
+# image size, a stated subset of the whole gate (49 FIRE pairs, 40 ISC
+# pairs, 80 classification lines), for the script's time limit: the first
+# 3 S, 2 P and 2 A pairs that the module's builder draws from the gate's
+# seed, and the first 8 ISC pairs (two portrait 720x640 buckets among them)
+# with their 16 classification lines.
+FIRE_ISC = dict(seed=20260820, fire_size=1024, fire_counts=(3, 2, 2),
+                isc_pairs=8)
+# FIRE at imsize 768 is a 96x96 coarse grid; ISC at 480 on a 720x640
+# (portrait) image resizes to 536x480, padded to 576x512: 72x64.
+FIRE_GRID = (1, (96, 96))
+ISC_PORTRAIT_GRID = (2, (72, 64))
+
+
+def _jpeg_round_trips(src, jpeg):
+    """encode -> decode three times at q95: the first round's error against
+    the source beside the quantisation bounds, and the pixels each later
+    round moves."""
+    q = jpeg.quality_table(95).astype(np.float64)
+    c = np.full(8, 0.5)
+    c[0] = math.sqrt(1 / 8)
+    # |pixel error| <= sum (q/2) |c_u c_v| + 1/2 (rounding); the RMS by
+    # Parseval at most sqrt(mean((q/2)^2)) + 1/2
+    max_bound = float((q.reshape(8, 8) / 2 * np.outer(c, c)).sum() + 0.5)
+    rms_bound = float(np.sqrt(((q / 2) ** 2).mean()) + 0.5)
+    rounds = [src]
+    for _ in range(3):
+        rounds.append(jpeg.decode_gray(jpeg.encode_gray(rounds[-1], 95)))
+    e1 = rounds[1].astype(np.float64) - src
+    moved = [float((rounds[i + 1] != rounds[i]).mean()) for i in (1, 2)]
+    step = [int(np.abs(rounds[i + 1].astype(int) - rounds[i]).max())
+            for i in (1, 2)]
+    return dict(err_max=int(np.abs(e1).max()), err_max_bound=round(max_bound,
+                                                                     2),
+                err_rms=round(float(np.sqrt((e1 ** 2).mean())), 4),
+                err_rms_bound=round(rms_bound, 4), moved_round2=moved[0],
+                moved_round3=moved[1], max_step_round2=step[0],
+                max_step_round3=step[1])
+
+
+def _eval_grid_kernels(device):
+    """K1 and K2 against their plain versions at the FIRE grid (B=1,
+    L = S = 9216) and a portrait ISC bucket (B=2, 72x64), bf16 and f32,
+    with phase 2's bars, each kernel's ms beside its bound."""
+    from geoformer_tpu_torch.eval import box_kernels as bk
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    gen = torch.Generator().manual_seed(10)
+    out = {}
+    for case, (b, grid) in (("fire", FIRE_GRID),
+                            ("isc_portrait", ISC_PORTRAIT_GRID)):
+        s = grid[0] * grid[1]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (_rand((b, s, HEADS, HEAD_DIM), gen, dtype, device)
+                       for _ in range(3))
+            centers = bk.homography_centers(b, grid).to(device)
+
+            def run():
+                return gk.box_window_attention_fwd(q, k, v, centers, grid, 2)
+
+            o, lse = run()
+            ref, ref_lse = gk.box_window_attention_plain(q, k, v, centers,
+                                                         grid, 2)
+            torch.cuda.synchronize()
+            err = (o.float() - ref.float()).abs().max().item()
+            valid = ref_lse > -1e6
+            lse_err = (lse - ref_lse)[valid].abs().max().item()
+            tol = TOL[("box_window_attention", dtype)]
+            nbytes = (4 * q.numel() * q.element_size() + centers.numel() * 4
+                      + lse.numel() * 4)
+            bound, by = _bound(nbytes, 4.0 * HEAD_DIM * HEADS
+                               * _box_cells(centers, grid, 2), dtype)
+            ms = bk.time_graph_ms(run, 50)
+            plain_ms = time_ms(lambda: gk.box_window_attention_plain(
+                q, k, v, centers, grid, 2), 3, warmup=1)
+            log("fire_isc", kernel="box_window_attention", case=case,
+                dtype=str(dtype), shape=f"q{tuple(q.shape)}", grid=grid,
+                max_abs_err=f"{err:.3e}", tol=tol,
+                lse_max_abs_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
+                kernel_ms=f"{ms:.4f}", call_ms=f"{time_ms(run, 50):.4f}",
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+                bound_by=by, **_gather_load(gk, centers, grid))
+            check(err <= tol, f"K1 {case} {dtype}: out error {err} > {tol}")
+            check(lse_err <= LSE_TOL, f"K1 {case} {dtype}: lse error "
+                  f"{lse_err}")
+            out[("box_window_attention", case, dtype)] = (ms, bound)
+            del o, ref
+            # K2 over the bench configuration's 1024 inlier slots
+            k2, v2 = (_rand((b, MAX_INLIERS, HEADS, HEAD_DIM), gen, dtype,
+                            device) for _ in range(2))
+            mask = _prefix_like(torch.rand((b, MAX_INLIERS), generator=gen)
+                                < 0.8).to(device)
+            r = _mka_fwd_case(gk, q, k2, v2, mask, f"prefix/{case}")
+            out[("masked_kv_attention", case, dtype)] = (r["ms"],
+                                                         r["bound_ms"])
+            del q, k, v, k2, v2
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_fire_isc(device):
+    """The FIRE and ISC-HE evaluation paths from JPEG files on the card:
+    the gate's corpora built at full size into a temporary directory
+    (FIRE_ISC), the decoder held on them, then `cli eval fire`, `eval isc`
+    and `eval isc-cls` in bf16 through K1 and K2 with the trained
+    checkpoint, the gate's thresholds, 4 launches of K1 and K2 a forward
+    (K3-K5 none), the ms of each part; then K1 and K2 at these paths'
+    shapes against their plain versions."""
+    import shutil
+    import tempfile
+
+    from geoformer_tpu_torch import cli
+    from geoformer_tpu_torch.data.synthetic import procedural_texture
+    from geoformer_tpu_torch.eval import fire, isc, jpeg, matcher
+    from geoformer_tpu_torch.eval import fire_isc_protocol as proto
+    from geoformer_tpu_torch.eval.image_io import read_gray, read_size
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    if not CKPT.is_file():
+        print(f"[fire_isc] absent path={CKPT}", flush=True)
+        return {}
+    tmp = Path(tempfile.mkdtemp(prefix="fire_isc_smoke_"))
+    try:
+        fire_dir, isc_dir = tmp / "fire", tmp / "isc"
+        t0 = time.perf_counter()
+        n_s, n_p, n_a = FIRE_ISC["fire_counts"]
+        n_fire = proto.build_fire(str(fire_dir), seed=FIRE_ISC["seed"],
+                                  size=FIRE_ISC["fire_size"], n_s=n_s,
+                                  n_p=n_p, n_a=n_a)
+        fire_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_isc = proto.build_isc(str(isc_dir), seed=FIRE_ISC["seed"] + 1,
+                                n_pairs=FIRE_ISC["isc_pairs"])
+        cls_txt = isc_dir / "cls_pairs.txt"
+        n_cls = proto.build_isc_cls(str(isc_dir), str(cls_txt),
+                                    seed=FIRE_ISC["seed"] + 2)
+        isc_build_s = time.perf_counter() - t0
+        files = sorted((fire_dir / "images").iterdir()) + sorted(
+            (isc_dir / "query").iterdir()) + sorted(
+            (isc_dir / "refer").iterdir())
+        sizes = {}
+        for f in files:
+            t0 = time.perf_counter()
+            img = read_gray(str(f))
+            dt = (time.perf_counter() - t0) * 1e3
+            check(img.shape == read_size(str(f)) and img.dtype == np.uint8,
+                  f"{f.name}: decoded {img.shape} {img.dtype}")
+            sizes.setdefault(img.shape, []).append(dt)
+        isc_shapes = sorted({read_size(str(f)) for f in
+                             (isc_dir / "query").iterdir()})
+        check(any(h > w for h, w in isc_shapes),
+              f"no portrait ISC image among {isc_shapes}")
+        log("fire_isc", corpora=f"fire {n_fire} pairs ({n_s} S, {n_p} P, "
+            f"{n_a} A) at {FIRE_ISC['fire_size']}^2, isc {n_isc} pairs, "
+            f"isc-cls {n_cls} lines", seed=FIRE_ISC["seed"],
+            fire_build_s=f"{fire_build_s:.1f}",
+            isc_build_s=f"{isc_build_s:.1f}", files_decoded=len(files),
+            isc_shapes=isc_shapes,
+            decode_ms_by_shape={f"{h}x{w}": f"{np.mean(v):.1f} (x{len(v)})"
+                                for (h, w), v in sorted(sizes.items())})
+        # round trips from the builders' own images before any JPEG: a
+        # fundus image and an ISC texture of the gate's sizes
+        rt = {}
+        rng = np.random.default_rng(FIRE_ISC["seed"])
+        for name, img in (
+                ("fundus_1024x1024", proto._fundus(rng, 1024)),
+                ("texture_600x800", procedural_texture(rng, (600, 800)))):
+            rt[name] = _jpeg_round_trips((img * 255).astype(np.uint8), jpeg)
+            log("fire_isc", round_trips=name, **rt[name])
+            r = rt[name]
+            check(r["err_max"] <= r["err_max_bound"] and
+                  r["err_rms"] <= r["err_rms_bound"],
+                  f"{name}: first round off the quantisation bounds {r}")
+            check(r["moved_round2"] <= 0.05 and r["max_step_round2"] <= 4
+                  and r["moved_round3"] <= r["moved_round2"],
+                  f"{name}: re-encoding does not settle {r}")
+
+        # the drivers, through the command line, timed by part
+        parts = {}
+
+        def timed_part(owner, attr, part, sync=False):
+            real = getattr(owner, attr)
+
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                res = real(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                parts.setdefault(part, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                return res
+
+            setattr(owner, attr, wrapper)
+            return owner, attr, real
+
+        records = {}
+        for bench, data, mod in (("fire", fire_dir, fire),
+                                 ("isc", isc_dir, isc),
+                                 ("isc-cls", cls_txt, isc)):
+            parts.clear()
+            patches = [timed_part(matcher, "read_gray", "decode"),
+                       timed_part(matcher, "resize_linear_u8", "resize"),
+                       timed_part(matcher.BatchedMatcher, "match_batch",
+                                  "forward"),
+                       timed_part(mod, "fit_homography_np", "fit", True)]
+            out = tmp / f"{bench}.json"
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(sys.stderr):
+                    cli.main(["eval", bench, "--data", str(data), "--ckpt",
+                              str(CKPT), "--bf16", "--pallas", "--device",
+                              str(device), "--json-out", str(out)])
+                torch.cuda.synchronize()
+            finally:
+                for owner, attr, real in patches:
+                    setattr(owner, attr, real)
+            wall = time.perf_counter() - t0
+            launches = dict(gk.LAUNCHES)
+            rec = json.loads(out.read_text())
+            forwards = len(parts.get("forward", []))
+            n = rec["n_pairs"]
+            log("fire_isc", benchmark=bench, record=json.dumps(rec),
+                wall_s=f"{wall:.1f}", forwards=forwards, launches=launches,
+                **{f"{k}_ms_per_pair": f"{sum(v) / n:.1f}"
+                   for k, v in parts.items()},
+                forward_ms=[f"{x:.1f}" for x in parts.get("forward", [])])
+            _forward_launches(launches, forwards, f"eval {bench}")
+            check(forwards == n, f"eval {bench}: {forwards} forwards for "
+                  f"{n} pairs")
+            records[bench] = rec
+        check(records["fire"]["n_pairs"] == n_fire and
+              records["isc"]["n_pairs"] == n_isc and
+              records["isc-cls"]["n_pairs"] == n_cls,
+              f"pair counts {[r['n_pairs'] for r in records.values()]}")
+        gate = {"fire": records["fire"], "isc": records["isc"],
+                "isc_cls": records["isc-cls"]}
+        log("fire_isc", gate_pass=proto.gate(gate),
+            fire_mauc=records["fire"]["mAUC"],
+            fire_failed=records["fire"]["failed"],
+            isc_auc=records["isc"]["auc"], isc_eer=records["isc-cls"]["eer"])
+        check(proto.gate(gate), f"FIRE/ISC gate missed: {gate}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _eval_grid_kernels(device)
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -2015,6 +2276,7 @@ def main() -> int:
     timed("eval_path", phase_eval_path, device, live_model)
     timed("eval_trained", phase_eval_trained, device)
     timed("training_loop", phase_training_loop, device, ms_step)
+    timed("fire_isc", phase_fire_isc, device)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

@@ -1,4 +1,4 @@
-"""Command line of the port: train, infer, eval (HPatches) and parity.
+"""Command line of the port: train, infer, eval and parity.
 
 Counterpart of the same subcommands of geoformer_tpu/cli.py, with its flags
 and defaults, plus ``--device`` (default ``cuda``):
@@ -8,6 +8,8 @@ and defaults, plus ``--device`` (default ``cuda``):
     python -m geoformer_tpu_torch.cli infer img0.png img1.png \\
         --ckpt checkpoints/tpu_r3_main/params_final.npz [--out m.npy]
     python -m geoformer_tpu_torch.cli eval hpatches --data <root> --ckpt ...
+    python -m geoformer_tpu_torch.cli eval fire|isc --data <root> --ckpt ...
+    python -m geoformer_tpu_torch.cli eval isc-cls --data pairs.txt --ckpt ...
     python -m geoformer_tpu_torch.cli parity --hpatches <root> --ckpt ...
 
 Checkpoints are the JAX package's ``.npz`` files; with no ``--ckpt`` the
@@ -25,7 +27,7 @@ import time
 import numpy as np
 
 # The JAX CLI's per-benchmark protocols (imsize, RANSAC threshold in
-# resized pixels); only HPatches is ported.
+# resized pixels).
 _EVAL_PROTOCOLS = {
     "hpatches": (480, 3.0),
     "fire": (768, 15.0),
@@ -114,12 +116,33 @@ def cmd_train(args):
 
 
 def cmd_eval(args):
-    if args.benchmark != "hpatches":
-        _not_ported(f"eval {args.benchmark}", "ROADMAP queue 1, eval drivers")
-    imsize, ransac_thr = _EVAL_PROTOCOLS[args.benchmark]
-    out = _hpatches(args, args.data,
-                    imsize if args.imsize is None else args.imsize,
-                    ransac_thr if args.ransac_thr is None else args.ransac_thr)
+    # --imsize/--ransac-thr default to the benchmark's protocol (they parse
+    # as None unless given)
+    proto = _EVAL_PROTOCOLS[args.benchmark]
+    imsize = proto[0] if args.imsize is None else args.imsize
+    ransac_thr = proto[1] if args.ransac_thr is None else args.ransac_thr
+    if args.benchmark == "hpatches":
+        out = _hpatches(args, args.data, imsize, ransac_thr)
+    else:
+        cfg, model = _model(args)
+        if args.benchmark == "fire":
+            from geoformer_tpu_torch.eval.fire import eval_fire
+
+            out = eval_fire(model, cfg, args.data, imsize=imsize,
+                            ransac_thr=ransac_thr, device=args.device)
+        elif args.benchmark == "isc":
+            from geoformer_tpu_torch.eval.isc import eval_isc
+
+            out = eval_isc(model, cfg, args.data, imsize=imsize,
+                           ransac_thr=ransac_thr, device=args.device)
+        else:
+            from geoformer_tpu_torch.eval.isc import eval_isc_classification
+
+            # --data is a text file of `query refer label` lines
+            out = eval_isc_classification(model, cfg, args.data,
+                                          imsize=imsize,
+                                          ransac_thr=ransac_thr,
+                                          device=args.device)
     print(json.dumps(out, indent=2, default=float))
     if args.json_out:
         with open(args.json_out, "w") as f:

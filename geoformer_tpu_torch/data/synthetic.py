@@ -32,7 +32,7 @@ from geoformer_tpu_torch.data.native import (
     native_textures,
     native_textures_mixed,
 )
-from geoformer_tpu_torch.eval.image_io import read_gray
+from geoformer_tpu_torch.eval.image_io import UnreadableImage, read_gray
 from geoformer_tpu_torch.geometry.homography import (
     grid_points,
     sample_homography,
@@ -291,15 +291,20 @@ def mixed_texture_bank(rng: np.random.Generator, hw: Tuple[int, int],
 def load_image_dir(root: str, hw: Tuple[int, int]) -> Optional[np.ndarray]:
     """[n, H, W] float32 grey images in [0, 1] of every *.jpg, *.png and
     *.ppm file under ``root`` (sorted, recursive), each resized to hw as
-    cv2.resize does; None if there is none. Unlike the JAX package, which
-    skips the files cv2 cannot read, a file the port cannot decode (JPEG
-    above all) raises ValueError."""
+    cv2.resize does; None if there is none. A file that cv2 cannot read
+    either is skipped, as the JAX package skips it; a format that cv2
+    reads and the port does not (a progressive JPEG, say) raises
+    ValueError."""
     paths = sorted(sum((glob.glob(os.path.join(root, "**", e), recursive=True)
                         for e in ("*.jpg", "*.png", "*.ppm")), []))
-    if not paths:
-        return None
-    return np.stack([resize_linear_u8(read_gray(p), hw).astype(np.float32)
-                     / 255.0 for p in paths])
+    out = []
+    for p in paths:
+        try:
+            im = read_gray(p)
+        except UnreadableImage:
+            continue
+        out.append(resize_linear_u8(im, hw).astype(np.float32) / 255.0)
+    return np.stack(out) if out else None
 
 
 def _procedural_bank(hw: Tuple[int, int], seed: int, texture_style: str,

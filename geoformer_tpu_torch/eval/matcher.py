@@ -3,7 +3,8 @@
 Counterpart of geoformer_tpu/eval/matcher.py. ``load_gray`` reads an image
 file (eval/image_io.py in place of cv2.imread), resizes its shorter edge to
 ``imsize`` on the /8 grid (ops/resize.resize_linear_u8 in place of
-cv2.resize) and returns the scale factors back to the file's frame.
+cv2.resize) and returns the scale factors back to the file's frame;
+``enhance_retinal`` is the JAX package's retinal enhancement.
 ``BatchedMatcher`` zero-pads pairs into one 64-pixel-rounded shape with
 coarse validity masks and matches them in batches of ``batch_size``; each
 call draws the RANSAC samples from a generator seeded with 0, as the JAX
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from geoformer_tpu_torch.config import GeoFormerConfig
+from geoformer_tpu_torch.eval.clahe import clahe
 from geoformer_tpu_torch.eval.image_io import read_gray
 from geoformer_tpu_torch.models import GeoFormer
 from geoformer_tpu_torch.ops.resize import resize_linear_u8
@@ -41,15 +43,27 @@ def resize_shape(wo: int, ho: int, imsize: Optional[int], dfactor: int = 8,
     return wt, ht, (wo / wt, ho / ht)
 
 
+def enhance_retinal(im: np.ndarray) -> np.ndarray:
+    """Retinal image enhancement: normalize, CLAHE (clip 2.0, 8x8 tiles),
+    gamma 1.2; uint8 in, uint8 out (the JAX function's arithmetic, with
+    eval/clahe.py and a table lookup in place of cv2)."""
+    x = im.astype(np.float64)
+    x = (x - x.mean()) / (x.std() + 1e-6)
+    x = (x - x.min()) / (x.max() - x.min()) * 255
+    x = clahe(x.astype(np.uint8), 2.0, (8, 8))
+    inv = 1.0 / 1.2
+    table = (((np.arange(256) / 255.0) ** inv) * 255).astype(np.uint8)
+    return table[x]
+
+
 def load_gray(path: str, imsize: Optional[int], dfactor: int = 8,
               enhanced: bool = False
               ) -> Tuple[np.ndarray, Tuple[float, float]]:
-    """([ht, wt] float32 image in [0, 1], (sx, sy)) of an image file."""
-    if enhanced:
-        raise NotImplementedError(
-            "enhanced=True (the retinal CLAHE enhancement) is not ported "
-            "yet: it comes with the FIRE driver (ROADMAP queue 1)")
+    """([ht, wt] float32 image in [0, 1], (sx, sy)) of an image file;
+    ``enhanced`` applies enhance_retinal before the resize."""
     im = read_gray(path)
+    if enhanced:
+        im = enhance_retinal(im)
     ho, wo = im.shape
     wt, ht, scale = resize_shape(wo, ho, imsize, dfactor)
     im = resize_linear_u8(im, (ht, wt))

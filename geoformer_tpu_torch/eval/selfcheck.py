@@ -13,20 +13,24 @@ driver.
 
 ``--pallas`` selects the hand-written GAM kernels (the JAX flag's name);
 ``--image held-out-photos`` reads data/holdout_photos/*.png, the
-photographs kept out of the training corpus. The homographies come from
-the port's sample_homography with a CPU torch.Generator seeded with
-``--seed`` (the JAX script's jax.random draws cannot be reproduced in
-torch), so the pairs are the JAX script's textures under other warps. It
-prints the JAX script's JSON keys.
+photographs kept out of the training corpus; ``--image real-photos`` the
+JPEG photographs of installed packages that the JAX script globs. The
+homographies come from the port's sample_homography with a CPU
+torch.Generator seeded with ``--seed`` (the JAX script's jax.random draws
+cannot be reproduced in torch), so the pairs are the JAX script's textures
+under other warps. It prints the JAX script's JSON keys.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
+import sysconfig
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +58,10 @@ from geoformer_tpu_torch.ops.resize import resize_linear_u8
 
 REPO_DIR = Path(__file__).resolve().parent.parent.parent
 HOLDOUT_DIR = REPO_DIR / "data" / "holdout_photos"
+# scripts/selfcheck_eval.py's real-photos, under site-packages
+REAL_PHOTOS = ("sklearn/datasets/images/*.jpg",
+               "matplotlib/mpl-data/sample_data/grace_hopper.jpg",
+               "pygame/docs/generated/_images/camera_rgb.jpg")
 THRESHOLDS = (1, 3, 5, 10)
 BATCH = 4
 
@@ -84,14 +92,26 @@ def photo_bases(paths: Sequence[str], n: int, hw) -> np.ndarray:
     return np.stack([ims[i % len(ims)] for i in range(n)])
 
 
+def real_photos() -> List[str]:
+    """The JAX script's ``--image real-photos``: the photographs that some
+    installed packages ship (sklearn's sample images, matplotlib's
+    grace_hopper.jpg, pygame's camera_rgb.jpg), sorted; FileNotFoundError
+    where none is installed, as the JAX script asserts."""
+    site = sysconfig.get_paths()["purelib"]
+    paths = sorted(sum((glob.glob(os.path.join(site, g)) for g in REAL_PHOTOS),
+                       []))
+    if not paths:
+        raise FileNotFoundError(
+            f"no package photos found under {site} ({', '.join(REAL_PHOTOS)})")
+    return paths
+
+
 def make_pairs(n: int, hw, seed: int, image: Optional[Sequence[str]] = None):
     """(base [n, h, w], warped [n, h, w], Hs [n, 3, 3] float32) of the
     protocol: procedural textures from ``seed`` (or photographs), their
     homographies and warps, on the host."""
     if image is not None and list(image) == ["real-photos"]:
-        raise NotImplementedError(
-            "--image real-photos reads JPEG files, and JPEG decoding is not "
-            "ported yet (ROADMAP queue 1); use held-out-photos")
+        image = real_photos()
     if image is not None and list(image) == ["held-out-photos"]:
         image = sorted(str(p) for p in HOLDOUT_DIR.glob("*.png"))
         if not image:
@@ -191,7 +211,10 @@ def main(argv=None) -> None:
     ap.add_argument("--int8-full", action="store_true")
     ap.add_argument("--image", action="append", default=None,
                     help="grey base image file(s), cycled over the pairs; "
-                         "held-out-photos = data/holdout_photos/*.png")
+                         "held-out-photos = data/holdout_photos/*.png; "
+                         "real-photos = the JPEG photographs that sklearn, "
+                         "matplotlib and pygame install (raises where none "
+                         "is installed, as on a machine without them)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.int8 or args.int8_full:

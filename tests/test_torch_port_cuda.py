@@ -582,3 +582,60 @@ def test_load_gray_reads_written_png_and_ppm(dev, tmp_path):
         im, scale = load_gray(path, 480)
         assert scale == (1.0, 1.0)
         np.testing.assert_array_equal(im, img.astype(np.float32) / 255.0)
+
+
+# The FIRE and ISC evaluation paths' shapes: FIRE at imsize 768 on square
+# fundus images is a 96x96 coarse grid (L = S = 9216); ISC at 480 on a
+# 720x640 (portrait) image resizes to 536x480, padded to 576x512: a 72x64
+# grid.
+EVAL_GRIDS = {"fire": (1, (96, 96)), "isc_portrait": (2, (72, 64))}
+
+
+def _homography_centres(b, grid_hw, gen):
+    """Each query's warped cell under a mild random perspective, some off
+    the grid, as the GAM's cross layers give K1."""
+    hg, wg = grid_hw
+    yy, xx = torch.meshgrid(torch.arange(hg, dtype=torch.float64),
+                            torch.arange(wg, dtype=torch.float64),
+                            indexing="ij")
+    out = []
+    for _ in range(b):
+        a = 1 + 0.1 * (torch.rand(4, generator=gen, dtype=torch.float64) - 0.5)
+        t = 4 * (torch.rand(2, generator=gen, dtype=torch.float64) - 0.5)
+        p = 2e-3 * (torch.rand(2, generator=gen, dtype=torch.float64) - 0.5)
+        w = 1 + p[0] * xx + p[1] * yy
+        cx = (a[0] * xx + (a[1] - 1) * yy + t[0]) / w
+        cy = ((a[2] - 1) * xx + a[3] * yy + t[1]) / w
+        out.append(torch.stack([cx, cy], -1).reshape(-1, 2))
+    return torch.stack(out).floor().to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(EVAL_GRIDS))
+def test_box_kernel_at_the_fire_and_isc_shapes(dev, dtype, case):
+    dt = getattr(torch, dtype)
+    b, (hg, wg) = EVAL_GRIDS[case]
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (_rand(gen, (b, hg * wg, 4, 64), dt, dev) for _ in range(3))
+    c = _homography_centres(b, (hg, wg), gen).to(dev)
+    out, lse = gk.box_window_attention(q, k, v, c, (hg, wg))
+    ref, ref_lse = gk.box_window_attention_plain(q, k, v, c, (hg, wg))
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    valid = ref_lse > -1e6
+    assert (lse - ref_lse)[valid].abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(EVAL_GRIDS))
+def test_mka_kernel_at_the_fire_and_isc_shapes(dev, dtype, case):
+    dt = getattr(torch, dtype)
+    b, (hg, wg) = EVAL_GRIDS[case]
+    gen = torch.Generator().manual_seed(6)
+    q = _rand(gen, (b, hg * wg, 4, 64), dt, dev)
+    k, v = (_rand(gen, (b, 1024, 4, 64), dt, dev) for _ in range(2))
+    n = torch.randint(1, 1025, (b, 1), generator=gen)
+    mask = (torch.arange(1024)[None] < n).to(dev)   # inliers packed first
+    out = gk.masked_kv_attention(q, k, v, mask)
+    ref = gk.masked_kv_attention_plain(q, k, v, mask)
+    assert (out - ref).abs().max().item() <= 1e-4

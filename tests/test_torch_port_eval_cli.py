@@ -1,6 +1,10 @@
 """The port's command line (infer, eval, parity) and image-directory
 training, on the CPU.
 
+``eval fire``, ``eval isc`` and ``eval isc-cls`` run on a small corpus of
+JPEG files that the port's gate module builds, and write the JAX drivers'
+keys; their protocol defaults are the JAX CLI's.
+
 ``infer`` runs on two PNG files written into tmp_path (a procedural
 texture at 300x400 and its warp by a known homography) with the trained
 checkpoint, through both packages' CLIs, each with its own RANSAC draws.
@@ -82,9 +86,6 @@ def test_infer_saves_what_the_jax_cli_saves(pair, capsys):
     (["infer", "a.png", "b.png", "--seq-shard", "2"], "--seq-shard"),
     (["infer", "a.png", "b.png", "--int8"], "--int8"),
     (["infer", "a.png", "b.png", "--ckpt", "geoformer.ckpt"], "torch_convert"),
-    (["eval", "fire", "--data", "x"], "eval fire"),
-    (["eval", "isc", "--data", "x"], "eval isc"),
-    (["eval", "isc-cls", "--data", "x"], "eval isc-cls"),
 ])
 def test_unported_flags_and_benchmarks_raise(pair, argv, match):
     argv = [str(pair / a) if a.endswith(".png") and a[0] in "ab" else a
@@ -130,6 +131,67 @@ def test_eval_and_parity_run_the_hpatches_protocol(pair, tmp_path, capsys,
         cli.main(["parity", "--hpatches", "root", "--device", "cpu",
                   "--expect", "0.52,0.7,0.8,0.9"])
     assert e.value.code == 1
+
+
+@pytest.mark.parametrize("benchmark,module,fn,proto", [
+    ("fire", "fire", "eval_fire", (768, 15.0)),
+    ("isc", "isc", "eval_isc", (480, 3.0)),
+    ("isc-cls", "isc", "eval_isc_classification", (480, 3.0)),
+])
+def test_eval_fire_and_isc_take_the_protocol_defaults(benchmark, module, fn,
+                                                      proto, monkeypatch):
+    """The JAX CLI's protocols (imsize, RANSAC threshold) unless given,
+    and the device flag."""
+    import importlib
+
+    mod = importlib.import_module(f"geoformer_tpu_torch.eval.{module}")
+    seen = []
+
+    def fake(model, cfg, data, imsize, ransac_thr, device):
+        seen.append((data, imsize, ransac_thr, device))
+        return {"n_pairs": 0}
+
+    monkeypatch.setattr(mod, fn, fake)
+    monkeypatch.setattr(cli, "_model", lambda args: (None, None))
+    cli.main(["eval", benchmark, "--data", "root", "--device", "cpu"])
+    cli.main(["eval", benchmark, "--data", "root", "--imsize", "96",
+              "--ransac-thr", "2", "--device", "meta"])
+    assert seen == [("root", *proto, "cpu"), ("root", 96, 2.0, "meta")]
+
+
+JAX_EVAL_KEYS = {
+    "fire": {"n_pairs", "failed", "inaccurate", "auc_per_class", "mAUC"},
+    "isc": {"n_pairs", "failed", "inaccurate", "auc", "acceptable",
+            "inlier_rate"},
+    "isc-cls": {"eer", "threshold", "n_pairs", "match_failed"},
+}
+
+
+def test_eval_fire_isc_and_isc_cls_write_the_jax_keys(tmp_path, capsys):
+    """The three benchmarks on a small corpus that the port's gate module
+    builds (JPEG files), through `cli eval ... --device cpu` with the
+    trained checkpoint: the --json-out record has the keys of the JAX
+    drivers' (geoformer_tpu/eval/fire.py, isc.py)."""
+    from geoformer_tpu_torch.eval import fire_isc_protocol as proto
+
+    fire_dir, isc_dir = tmp_path / "fire", tmp_path / "isc"
+    proto.build_fire(str(fire_dir), seed=1, size=96, n_s=1, n_p=0, n_a=0)
+    proto.build_isc(str(isc_dir), seed=2, n_pairs=1)
+    q = isc_dir / "query" / "isc000_2.jpg"
+    (isc_dir / "cls.txt").write_text(
+        f"{q} {isc_dir / 'refer' / 'isc000_1.jpg'} 1\n{q} {q} 0\n")
+    for benchmark, data in (("fire", fire_dir), ("isc", isc_dir),
+                            ("isc-cls", isc_dir / "cls.txt")):
+        out = tmp_path / f"{benchmark}.json"
+        cli.main(["eval", benchmark, "--data", str(data), "--ckpt", CKPT,
+                  "--device", "cpu", "--json-out", str(out),
+                  "--imsize", "64"])
+        rec = json.loads(out.read_text())
+        assert set(rec) == JAX_EVAL_KEYS[benchmark], benchmark
+        assert rec["n_pairs"] == {"fire": 1, "isc": 1, "isc-cls": 2}[
+            benchmark]
+        printed = capsys.readouterr().out
+        assert json.loads(printed[printed.index("\n{\n") + 1:]) == rec
 
 
 def test_run_training_on_an_image_directory(tmp_path):

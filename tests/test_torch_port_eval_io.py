@@ -4,7 +4,8 @@ package and cv2.
 cv2 is the oracle for reading files (the JAX package calls
 cv2.imread(IMREAD_GRAYSCALE) and cv2.resize); the port may not import it.
 Fixtures are written into tmp_path at test time: PNGs by a small encoder
-below (every row filter, every colour type) and by cv2, PGM/PPM by cv2.
+below (every row filter, every colour type) and by cv2, PGM/PPM and JPEG
+by cv2 (the JPEG decoder's own tests are tests/test_torch_port_jpeg.py).
 
 Tolerances: decoding is exact for grey and colour files alike (the port
 uses libpng's and cv2's own fixed-point grey weights; measured exact on
@@ -34,7 +35,11 @@ from geoformer_tpu_torch.data.synthetic import (  # noqa: E402
     load_image_dir,
 )
 from geoformer_tpu_torch.eval import matcher, metrics  # noqa: E402
-from geoformer_tpu_torch.eval.image_io import read_gray, read_size  # noqa: E402
+from geoformer_tpu_torch.eval.image_io import (  # noqa: E402
+    UnreadableImage,
+    read_gray,
+    read_size,
+)
 from geoformer_tpu_torch.geometry.homography import (  # noqa: E402
     sample_homography,
     sample_homography_draws,
@@ -145,23 +150,32 @@ def test_pnm_header_with_a_comment(tmp_path):
 
 
 def test_unsupported_and_damaged_files_raise(tmp_path):
+    """A format cv2 reads and the port does not raises ValueError naming
+    it; a file cv2 cannot read either (cv2.imread gives None) raises
+    UnreadableImage, a ValueError."""
     img = np.random.default_rng(5).integers(0, 256, (16, 16), np.uint8)
     jpg = str(tmp_path / "a.jpg")
-    cv2.imwrite(jpg, img)
-    with pytest.raises(ValueError, match="JPEG"):
+    cv2.imwrite(jpg, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="progressive JPEG") as e:
         read_gray(jpg)
-    with pytest.raises(ValueError, match="JPEG"):
+    assert not isinstance(e.value, UnreadableImage)
+    with pytest.raises(ValueError, match="progressive JPEG"):
         read_size(jpg)
     data = encode_png(img[..., None], 0, [1] * 16)
     cut = tmp_path / "cut.png"
     cut.write_bytes(data[:len(data) // 2])
-    with pytest.raises(ValueError, match="truncated"):
+    assert cv2.imread(str(cut), cv2.IMREAD_GRAYSCALE) is None
+    with pytest.raises(UnreadableImage, match="truncated"):
         read_gray(str(cut))
     bad = bytearray(data)
     bad[40] ^= 0xFF
     (tmp_path / "crc.png").write_bytes(bytes(bad))
-    with pytest.raises(ValueError, match="CRC"):
+    assert cv2.imread(str(tmp_path / "crc.png"), cv2.IMREAD_GRAYSCALE) is None
+    with pytest.raises(UnreadableImage, match="CRC"):
         read_gray(str(tmp_path / "crc.png"))
+    (tmp_path / "text.png").write_bytes(b"not an image at all")
+    with pytest.raises(UnreadableImage):
+        read_gray(str(tmp_path / "text.png"))
     deep = tmp_path / "deep.png"
     cv2.imwrite(str(deep), img.astype(np.uint16) * 257)
     with pytest.raises(ValueError, match="16-bit"):
@@ -204,7 +218,7 @@ def test_resize_shape_equals_the_jax_one():
 def test_load_gray_matches_the_jax_one(tmp_path):
     rng = np.random.default_rng(6)
     cases = [("a.png", (427, 640)), ("b.ppm", (600, 800)),
-             ("c.png", (300, 200))]
+             ("c.png", (300, 200)), ("d.jpg", (450, 600))]
     for name, hw in cases:
         img = cv2.GaussianBlur(rng.integers(0, 256, hw + (3,), np.uint8),
                                (0, 0), 1.5)
@@ -216,8 +230,10 @@ def test_load_gray_matches_the_jax_one(tmp_path):
             assert got.dtype == np.float32 and got.shape == ref.shape
             assert sc == rsc
             assert np.abs(got - ref).max() <= 1 / 255 + 1e-7
-    with pytest.raises(NotImplementedError, match="CLAHE"):
-        matcher.load_gray(str(tmp_path / "a.png"), 480, enhanced=True)
+    got, sc = matcher.load_gray(str(tmp_path / "a.png"), 480, enhanced=True)
+    ref, rsc = j_matcher.load_gray(str(tmp_path / "a.png"), 480,
+                                   enhanced=True)
+    assert sc == rsc and np.abs(got - ref).max() <= 1 / 255 + 1e-7
     with pytest.raises(FileNotFoundError):
         matcher.load_gray(str(tmp_path / "missing.png"), 480)
 
@@ -244,19 +260,27 @@ def test_native_warp_equals_the_jax_one(monkeypatch):
 
 
 def test_load_image_dir_matches_the_jax_one(tmp_path):
+    """JPEG, PNG and PPM files are read; a damaged file that cv2 cannot
+    read is skipped by both packages; a progressive JPEG (read by cv2, not
+    by the port) raises."""
     rng = np.random.default_rng(8)
     (tmp_path / "sub").mkdir()
     for name, hw in (("a.png", (50, 70)), ("sub/b.ppm", (90, 60)),
-                     ("c.png", (64, 80))):
-        cv2.imwrite(str(tmp_path / name),
-                    rng.integers(0, 256, hw + (3,), np.uint8))
+                     ("c.png", (64, 80)), ("sub/e.jpg", (70, 90)),
+                     ("f.jpg", (40, 100))):
+        img = cv2.GaussianBlur(rng.integers(0, 256, hw + (3,), np.uint8),
+                               (0, 0), 1.0)
+        cv2.imwrite(str(tmp_path / name), img)
+    data = (tmp_path / "c.png").read_bytes()
+    (tmp_path / "d.png").write_bytes(data[:len(data) // 2])   # damaged
     got = load_image_dir(str(tmp_path), (64, 80))
     ref = j_load_image_dir(str(tmp_path), (64, 80))
-    assert got.shape == ref.shape == (3, 64, 80)
+    assert got.shape == ref.shape == (5, 64, 80)
     np.testing.assert_array_equal(got, ref)
     assert load_image_dir(str(tmp_path / "empty"), (64, 80)) is None
-    cv2.imwrite(str(tmp_path / "d.jpg"), np.zeros((8, 8), np.uint8))
-    with pytest.raises(ValueError, match="JPEG"):
+    cv2.imwrite(str(tmp_path / "g.jpg"), np.zeros((8, 8), np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="progressive"):
         load_image_dir(str(tmp_path), (64, 80))
 
 

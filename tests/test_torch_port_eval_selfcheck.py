@@ -133,8 +133,32 @@ def test_make_pairs_draws_the_port_protocol():
     assert photos.shape == (3, 48, 64)
     np.testing.assert_array_equal(photos[0], photos[2])   # two, cycled
     assert not np.array_equal(photos[0], photos[1])
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        selfcheck.make_pairs(2, (48, 64), 5, ["real-photos"])
+    try:
+        paths = selfcheck.real_photos()
+    except FileNotFoundError:
+        pytest.skip("no package photographs (sklearn, matplotlib, pygame)")
+    real, _, _ = selfcheck.make_pairs(len(paths), (48, 64), 5,
+                                      ["real-photos"])
+    assert real.shape == (len(paths), 48, 64)
+
+
+def test_real_photos_are_the_jax_script_bases():
+    """--image real-photos globs the JAX script's photographs and reads
+    them as it does (cv2.imread grey, cv2.resize to the pair size): the
+    decode exactly, the bases within the resize's 1/255."""
+    cv2 = pytest.importorskip("cv2")
+    try:
+        paths = selfcheck.real_photos()
+    except FileNotFoundError:
+        pytest.skip("no package photographs (sklearn, matplotlib, pygame)")
+    hw = (120, 160)
+    base, _, _ = selfcheck.make_pairs(len(paths) + 1, hw, 5, ["real-photos"])
+    for i, p in enumerate(paths + paths[:1]):
+        im = cv2.imread(p, cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(
+            selfcheck.read_gray(p), im, err_msg=p)
+        ref = cv2.resize(im, hw[::-1]).astype(np.float32) / 255.0
+        assert np.abs(base[i] - ref).max() <= 1 / 255 + 1e-7, p
 
 
 def test_the_script_prints_the_jax_keys(capsys):

@@ -154,3 +154,100 @@ def match_bar(ref_ids, ref_kp, got_ids, got_kp):
     overlap = len(common) / max(len(ref.keys() | got.keys()), 1)
     kp = max((np.abs(ref[c] - got[c]).max() for c in common), default=0.0)
     return overlap, float(kp)
+
+
+class JaxDrawsMatcher:
+    """Drive a JAX eval driver and the port's with the same RANSAC draws.
+
+    ``patch_jax(monkeypatch, j_matcher_module)`` makes the JAX
+    BatchedMatcher run each forward through one jitted function per bucket
+    that also returns the GAM's draws ([B, iters, 4], as
+    jax_forward_and_draws computes them), and records them in order.
+    ``patch_port(monkeypatch, model)`` hands the recorded draws, in the
+    same order, to the port model's forwards. ``patch_fits`` makes a
+    driver module's fit_homography_np take the JAX fit's draws
+    (jax_fit_sample_idx with seed 0, the JAX default)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.draws = []
+        self._fns = {}
+        self._next = 0
+
+    def _fwd(self, hw):
+        import jax
+        import jax.numpy as jnp
+
+        from geoformer_tpu.models import GeoFormer as JGeoFormer
+        from geoformer_tpu.models.coarse_matching import coarse_match
+
+        if hw in self._fns:
+            return self._fns[hw]
+        cfg = self.cfg
+        model = JGeoFormer(cfg)
+        iters = cfg.geo.ransac_iters
+
+        def fwd(v, i0, i1, m0, m1):
+            key = jax.random.key(0)
+            out, st = model.apply(v, i0, i1, mask0=m0, mask1=m1,
+                                  rngs={"ransac": key},
+                                  capture_intermediates=True,
+                                  mutable=["intermediates"])
+            b = i0.shape[0]
+            f0, f1 = st["intermediates"]["loftr_coarse"]["__call__"][0]
+            matches1 = coarse_match(
+                f0, f1, cfg.match.thr, cfg.match.dsmax_temperature,
+                cfg.match.max_matches, m0.reshape(b, -1), m1.reshape(b, -1),
+                streaming=True)
+            rkey = model.apply(v, method=lambda mod: mod.make_rng("ransac"),
+                               rngs={"ransac": key})
+
+            def draw(k, valid):
+                g = jax.random.gumbel(k, (iters, valid.shape[0]))
+                return jax.lax.top_k(jnp.where(valid[None, :], g, -jnp.inf),
+                                     4)[1]
+
+            return out, jax.vmap(draw)(jax.random.split(rkey, b),
+                                       matches1.valid)
+
+        self._fns[hw] = jax.jit(fwd)
+        return self._fns[hw]
+
+    def patch_jax(self, monkeypatch, j_matcher_module):
+        owner = self
+
+        def _get_fn(matcher, hw):
+            fn = owner._fwd(hw)
+
+            def call(params, i0, i1, m0, m1):
+                out, idx = fn(params, i0, i1, m0, m1)
+                owner.draws.append(np.asarray(idx))
+                return out
+            return call
+
+        monkeypatch.setattr(j_matcher_module.BatchedMatcher, "_get_fn",
+                            _get_fn)
+
+    def patch_port(self, model):
+        """A forward pre-hook on the port model; returns its handle."""
+        self._next = 0
+
+        def hook(module, args, kwargs):
+            idx = self.draws[self._next]
+            self._next += 1
+            kwargs["sample_idx"] = torch.tensor(idx, dtype=torch.long)
+            return args, kwargs
+
+        return model.register_forward_pre_hook(hook, with_kwargs=True)
+
+    @staticmethod
+    def patch_fits(monkeypatch, module):
+        real = module.fit_homography_np
+
+        def fit(p0, p1, thr, **kw):
+            if len(p0) < 4:
+                return None, None
+            return real(p0, p1, thr, sample_idx=jax_fit_sample_idx(
+                len(p0), 0), **kw)
+
+        monkeypatch.setattr(module, "fit_homography_np", fit)
