@@ -1,4 +1,4 @@
-"""Command line of the port: train, infer, eval and parity.
+"""Command line of the port: train, infer, eval, parity and export.
 
 Counterpart of the same subcommands of geoformer_tpu/cli.py, with its flags
 and defaults, plus ``--device`` (default ``cuda``):
@@ -6,15 +6,19 @@ and defaults, plus ``--device`` (default ``cuda``):
     python -m geoformer_tpu_torch.cli train --pallas --batch 4 --out ckpt \\
         [--steps 12000] [--val-every 500 --tensorboard] [--resume]
     python -m geoformer_tpu_torch.cli infer img0.png img1.png \\
-        --ckpt checkpoints/tpu_r3_main/params_final.npz [--out m.npy]
+        --ckpt checkpoints/tpu_r3_main/params_final.npz [--out m.npy] \\
+        [--draw m.png] [--draw-geo g.png]
     python -m geoformer_tpu_torch.cli eval hpatches --data <root> --ckpt ...
     python -m geoformer_tpu_torch.cli eval fire|isc --data <root> --ckpt ...
     python -m geoformer_tpu_torch.cli eval isc-cls --data pairs.txt --ckpt ...
     python -m geoformer_tpu_torch.cli parity --hpatches <root> --ckpt ...
+    python -m geoformer_tpu_torch.cli export --out matcher.gfmz --ckpt ... \\
+        [--height 480 --width 640 --batch 1] [--bf16 --pallas]
 
-Checkpoints are the JAX package's ``.npz`` files; with no ``--ckpt`` the
-weights are random (seed 0). Flags and benchmarks that are not ported yet
-raise NotImplementedError naming their ROADMAP item.
+Checkpoints are the JAX package's ``.npz`` files or the reference's torch
+``.ckpt``/``.pth``/``.pt`` files; with no ``--ckpt`` the weights are random
+(seed 0). Flags and benchmarks that are not ported yet raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -62,8 +66,11 @@ def _model(args):
     if args.ckpt is None:
         return cfg, weights.random_init(model, seed=0)
     if args.ckpt.endswith((".ckpt", ".pth", ".pt")):
-        _not_ported("loading torch checkpoints (utils/torch_convert.py)",
-                    "ROADMAP queue 1")
+        # released torch checkpoints (reference-named state dicts) load
+        # directly
+        from geoformer_tpu_torch.utils.torch_convert import load_torch_weights
+
+        return cfg, load_torch_weights(model, args.ckpt)
     return cfg, weights.load_jax_params(model, weights.load_npz(args.ckpt))
 
 
@@ -173,9 +180,6 @@ def cmd_parity(args):
 def cmd_infer(args):
     from geoformer_tpu_torch.eval.matcher import BatchedMatcher, load_gray
 
-    if args.draw or args.draw_geo:
-        _not_ported("--draw / --draw-geo (utils/plotting.py)",
-                    "ROADMAP queue 1, match figures")
     if args.seq_shard > 1:
         _not_ported("--seq-shard", "ROADMAP queue 1, sequence parallelism")
     # read the files before building the model: a bad path fails at once
@@ -188,11 +192,57 @@ def cmd_infer(args):
                                                  return_geo=True)
     print(f"{len(mk0)} matches in {time.time() - t0:.2f}s "
           f"(GAM: has_H={geo['has_H']} inliers={geo['num_inliers']})")
+    if args.draw:
+        from geoformer_tpu_torch.utils.plotting import (
+            render_matches,
+            write_png,
+        )
+
+        write_png(args.draw, render_matches(im0, im1, mk0, mk1),
+                  text=f"GeoFormer-TPU\n{len(mk0)} matches")
+        print(f"figure -> {args.draw}")
+    if args.draw_geo:
+        from geoformer_tpu_torch.utils.plotting import (
+            NO_H_TEXT,
+            render_geo_windows,
+            write_png,
+        )
+
+        write_png(args.draw_geo,
+                  render_geo_windows(im0, im1, geo["H"], geo["has_H"],
+                                     scale=cfg.coarse_scale,
+                                     window_size=cfg.geo.window_size),
+                  text=None if geo["has_H"] else NO_H_TEXT)
+        if not geo["has_H"]:
+            print(NO_H_TEXT)
+        print(f"GAM window figure -> {args.draw_geo}")
     mk0 = mk0 * np.array(sc0)
     mk1 = mk1 * np.array(sc1)
     if args.out:
         np.save(args.out, np.concatenate([mk0, mk1, conf[:, None]], axis=1))
         print(f"saved -> {args.out}")
+
+
+def _export_device(args) -> str:
+    """The one device of --platforms (cuda or cpu), else --device."""
+    if not args.platforms:
+        return args.device
+    platforms = [p.strip() for p in args.platforms.split(",") if p.strip()]
+    if len(platforms) != 1 or platforms[0] not in ("cuda", "cpu"):
+        raise ValueError(f"--platforms {args.platforms!r}: the port exports "
+                         f"for one of cuda or cpu")
+    return platforms[0]
+
+
+def cmd_export(args):
+    from geoformer_tpu_torch.serving import save_bundle
+
+    device = _export_device(args)
+    cfg, model = _model(args)
+    save_bundle(args.out, cfg, model, hw=(args.height, args.width),
+                batch=args.batch, device=device)
+    print(f"serving bundle ({args.batch}x{args.height}x{args.width}, "
+          f"platforms={[device]}) -> {args.out}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -201,7 +251,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     def common(sp):
         sp.add_argument("--ckpt", default=None,
-                        help="a JAX .npz checkpoint (default: random)")
+                        help="a JAX .npz or a torch .ckpt/.pth/.pt "
+                             "checkpoint (default: random)")
         sp.add_argument("--match-thr", type=float, default=0.2)
         sp.add_argument("--max-matches", type=int, default=1024)
         sp.add_argument("--gam-ransac-iters", type=int, default=256)
@@ -288,11 +339,28 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("image0")
     i.add_argument("image1")
     i.add_argument("--out", default=None)
-    i.add_argument("--draw", default=None)
-    i.add_argument("--draw-geo", default=None)
+    i.add_argument("--draw", default=None,
+                   help="write the match figure to this PNG")
+    i.add_argument("--draw-geo", default=None,
+                   help="write the GAM window view to this PNG")
     i.add_argument("--seq-shard", type=int, default=0)
     common(i)
     i.set_defaults(fn=cmd_infer)
+
+    ex = sub.add_parser(
+        "export",
+        help="export a self-contained serving bundle (torch.export program "
+             "with its weights; geoformer_tpu_torch.serving.load_bundle runs "
+             "it without the model code)")
+    ex.add_argument("--out", default="matcher.gfmz")
+    ex.add_argument("--height", type=int, default=480)
+    ex.add_argument("--width", type=int, default=640)
+    ex.add_argument("--batch", type=int, default=1)
+    ex.add_argument("--platforms", default=None,
+                    help="the export's device, cuda or cpu (default: "
+                         "--device)")
+    common(ex)
+    ex.set_defaults(fn=cmd_export)
     return p
 
 

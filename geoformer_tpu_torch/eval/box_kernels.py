@@ -1,4 +1,4 @@
-"""Device times of the box-window kernels K1, K5 and K4 on one GPU.
+"""Device times of the GAM kernels K1, K5, K4 and K2 on one GPU.
 
     python3 geoformer_tpu_torch/eval/box_kernels.py [--root DIR] [--label NAME]
 
@@ -6,10 +6,13 @@ Times K5 (f32 and bf16, B=4), K1 (bf16 B=2, f32 B=2 and B=4) and K4 (f32
 and bf16, B=4) at the shapes of the main paths (L = S = 4800 on the 60x80
 grid, 4 heads of 64) and at three centre patterns: a homography near the
 identity with rows pushed off the grid, a collapsing perspective and a zoom
-by 2. Each wrapper call is timed on the device by CUDA-graph replay (the
-host's time per call does not count), hot and with the L2 cache flushed
-before each call. One line per case; the last line is one JSON object
-with all of them.
+by 2; and K2 (bf16 and f32, B=2) over the inference path's 1024 inlier
+slots with a prefix of 608 live keys. Each wrapper call is timed on the
+device by CUDA-graph replay (the host's time per call does not count), hot
+and with the L2 cache flushed before each call, and by an eager loop of
+calls between CUDA events (call_ms: the device time or the host's time
+per call, whichever is longer). One line per case; the last line is one
+JSON object with all of them.
 
 With --root, the package ``geoformer_tpu_torch`` under DIR is timed
 instead of this one, so that two versions can be compared on one card in
@@ -113,11 +116,37 @@ def time_graph_cold_ms(fn, iters: int) -> float:
     return time_graph_ms(fn, iters, flush)
 
 
+def time_eager_ms(fn, iters: int) -> float:
+    """Mean time per call of an eager loop of fn() between CUDA events,
+    after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # (kernel, dtype, batch) in the order they are timed
 CASES = (("K5", torch.float32, 4), ("K5", torch.bfloat16, 4),
          ("K1", torch.bfloat16, 2), ("K1", torch.float32, 2),
          ("K1", torch.float32, 4), ("K4", torch.float32, 4),
-         ("K4", torch.bfloat16, 4))
+         ("K4", torch.bfloat16, 4), ("K2", torch.bfloat16, 2),
+         ("K2", torch.float32, 2))
+K2_SLOTS, K2_LIVE = 1024, 608   # the inference path's inlier slots
+
+
+def _row(label, which, dtype, b, pattern, fn) -> dict:
+    row = dict(label=label, kernel=which, dtype=str(dtype)[6:], batch=b,
+               centres=pattern, device_ms=round(time_graph_ms(fn, 20), 5),
+               device_cold_ms=round(time_graph_cold_ms(fn, 10), 5),
+               call_ms=round(time_eager_ms(fn, 20), 5))
+    print(" ".join(f"{k_}={v_}" for k_, v_ in row.items()), flush=True)
+    return row
 
 
 def time_cases(gk, label: str) -> list:
@@ -131,7 +160,15 @@ def time_cases(gk, label: str) -> list:
                                                                 device=dev)
                       for _ in range(4))
         g = g.float()
-        for pattern, centers in centre_patterns(b):
+        if which == "K2":
+            kv = [x[:, :K2_SLOTS].contiguous() for x in (k, v)]
+            mask = (torch.arange(K2_SLOTS, device=dev) < K2_LIVE)[None] \
+                .expand(b, K2_SLOTS).contiguous()
+            rows.append(_row(label, which, dtype, b, f"prefix{K2_LIVE}",
+                             lambda: gk.masked_kv_attention_fwd(q, *kv,
+                                                                mask)))
+        for pattern, centers in (() if which == "K2" else
+                                 centre_patterns(b)):
             c = centers.to(dev)
             out, lse = gk.box_window_attention_fwd(q, k, v, c, GRID_HW, 2)
             delta = (g * out.float()).sum(-1)
@@ -141,13 +178,7 @@ def time_cases(gk, label: str) -> list:
                       q, k, v, c, lse, delta, g, GRID_HW, 2),
                   "K4": lambda: gk.box_window_attention_bwd_dkv(
                       q, k, v, c, lse, delta, g, GRID_HW, 2)}[which]
-            row = dict(label=label, kernel=which, dtype=str(dtype)[6:],
-                       batch=b, centres=pattern,
-                       device_ms=round(time_graph_ms(fn, 20), 5),
-                       device_cold_ms=round(time_graph_cold_ms(fn, 10), 5))
-            print(" ".join(f"{k_}={v_}" for k_, v_ in row.items()),
-                  flush=True)
-            rows.append(row)
+            rows.append(_row(label, which, dtype, b, pattern, fn))
         del q, k, v, g
         torch.cuda.empty_cache()
     return rows

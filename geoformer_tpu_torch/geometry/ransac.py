@@ -8,8 +8,9 @@ normalized DLT, accepted by MSAC cost. Every shape is fixed: points arrive
 capacity-padded with a validity mask.
 
 The random draws cannot be JAX's: a caller may inject the hypotheses'
-sample indices (``sample_idx``), as the parity tests do; otherwise they come
-from a torch.Generator.
+sample indices (``sample_idx``), as the parity tests do; otherwise the
+Gumbel draw's uniforms come from a fixed ``noise`` tensor, as the serving
+bundle bakes one in, or from a torch.Generator.
 """
 
 from __future__ import annotations
@@ -72,11 +73,20 @@ def _reproj_err2(H, pts0, pts1) -> torch.Tensor:
 
 
 def gumbel_sample_idx(valid: torch.Tensor, iters: int,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
-    """[B, iters, 4] minimal samples: Gumbel top-4 over the valid entries."""
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, iters, 4] minimal samples: Gumbel top-4 over the valid entries,
+    from uniforms in [0, 1) drawn from ``generator`` or given as ``noise``
+    [B, iters, N]."""
     b, n = valid.shape
-    u = torch.rand((b, iters, n), generator=generator, device=valid.device)
+    if noise is None:
+        u = torch.rand((b, iters, n), generator=generator,
+                       device=valid.device)
+    elif tuple(noise.shape) != (b, iters, n):
+        raise ValueError(f"RANSAC noise {tuple(noise.shape)}, expected "
+                         f"{(b, iters, n)}")
+    else:
+        u = noise
     g = -torch.log(-torch.log(u.clamp(min=1e-20)))
     g = torch.where(valid[:, None, :], g, torch.full_like(g, float("-inf")))
     return torch.topk(g, 4, dim=-1).indices
@@ -85,14 +95,15 @@ def gumbel_sample_idx(valid: torch.Tensor, iters: int,
 def ransac_homography(pts0, pts1, valid, thr: float = 3.0, iters: int = 512,
                       refine_iters: int = 2, min_valid: int = 4,
                       sample_idx: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
     """Robust homography fit on capacity-padded correspondences.
 
     Args:
         pts0, pts1: [B, N, 2]; valid: [B, N] bool.
-        sample_idx: optional [B, iters, 4] hypothesis samples; drawn from
-            ``generator`` when absent.
+        sample_idx: optional [B, iters, 4] hypothesis samples; drawn by
+            gumbel_sample_idx from ``noise`` or ``generator`` when absent.
     Returns:
         dict with 'H' [B, 3, 3], 'inliers' [B, N], 'num_inliers' [B],
         'ok' [B] (>= min_valid inputs, >= 4 inliers, finite H).
@@ -100,7 +111,7 @@ def ransac_homography(pts0, pts1, valid, thr: float = 3.0, iters: int = 512,
     b, n = valid.shape
     validf = valid.float()
     if sample_idx is None:
-        sample_idx = gumbel_sample_idx(valid, iters, generator)
+        sample_idx = gumbel_sample_idx(valid, iters, generator, noise)
     bidx = torch.arange(b, device=valid.device)[:, None, None]
     s0 = pts0[bidx, sample_idx]                            # [B, K, 4, 2]
     s1 = pts1[bidx, sample_idx]

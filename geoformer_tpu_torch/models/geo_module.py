@@ -44,7 +44,8 @@ class GeoState(NamedTuple):
 def _build_geo_state(matches: CoarseMatches, hw0_c, hw1_c, scale: int,
                      cfg: GeoModuleConfig,
                      sample_idx: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> GeoState:
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> GeoState:
     """RANSAC on the first-pass matches + inlier membership maps."""
     b = matches.i_ids.shape[0]
     l0 = hw0_c[0] * hw0_c[1]
@@ -55,7 +56,8 @@ def _build_geo_state(matches: CoarseMatches, hw0_c, hw1_c, scale: int,
     fit = ransac_homography(pts0, pts1, valid, thr=cfg.ransac_thr,
                             iters=cfg.ransac_iters,
                             refine_iters=cfg.refine_iters,
-                            sample_idx=sample_idx, generator=generator)
+                            sample_idx=sample_idx, generator=generator,
+                            noise=noise)
     has_H = fit["ok"] & (valid.sum(-1) > cfg.min_matches)
     # membership: RANSAC inliers when H exists, else all matches
     member = torch.where(has_H[:, None], fit["inliers"] & valid, valid)
@@ -122,9 +124,12 @@ class GeoModule(nn.Module):
 
     def forward(self, cnn_feat0, cnn_feat1, matches: CoarseMatches,
                 scale: int, sample_idx: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                ransac_noise: Optional[torch.Tensor] = None):
         """cnn_feat0/1: [B, h, w, C] coarse CNN features (before the coarse
-        transformer). Returns (feat0 [B, L0, C], feat1 [B, L1, C], GeoState).
+        transformer). RANSAC takes sample_idx, else the uniforms of
+        ransac_noise [B, ransac_iters, max_matches], else draws from
+        generator. Returns (feat0 [B, L0, C], feat1 [B, L1, C], GeoState).
         """
         cfg = self.cfg
         b, h0, w0, c = cnn_feat0.shape
@@ -133,7 +138,8 @@ class GeoModule(nn.Module):
         # it (stop_gradient in the JAX package)
         with torch.no_grad():
             state = _build_geo_state(matches, (h0, w0), (h1, w1), scale,
-                                     cfg, sample_idx, generator)
+                                     cfg, sample_idx, generator,
+                                     ransac_noise)
         feat0 = add_position_encoding(cnn_feat0).reshape(b, h0 * w0, c)
         feat1 = add_position_encoding(cnn_feat1).reshape(b, h1 * w1, c)
 

@@ -82,13 +82,16 @@ class GeoFormer(nn.Module):
                 sample_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False,
-                return_feats: bool = False) -> MatchOutput:
+                return_feats: bool = False,
+                ransac_noise: Optional[torch.Tensor] = None) -> MatchOutput:
         """
         Args:
             image0/1: [B, H, W, 1] grayscale in [0, 1], one shape.
             mask0/1: [B, H/8, W/8] coarse validity masks (padding).
             sample_idx: optional [B, ransac_iters, 4] RANSAC samples.
             generator: torch.Generator for the RANSAC samples otherwise.
+            ransac_noise: or the uniforms of their Gumbel draw,
+                [B, ransac_iters, max_matches] in [0, 1).
             train: BatchNorm on batch statistics (updating the running
                 ones) and the force-one-match rule, as in the JAX model.
             return_feats: also return (f0, f1, g0, g1) in ``feats``.
@@ -125,7 +128,7 @@ class GeoFormer(nn.Module):
         with record_function("gam"):
             g0, g1, geo_state = self.geo_module(cnn_c0, cnn_c1, matches1,
                                                 cfg.coarse_scale, sample_idx,
-                                                generator)
+                                                generator, ransac_noise)
         with record_function("coarse_match_2"):
             matches2 = matcher(g0, g1)
         with record_function("fine"):

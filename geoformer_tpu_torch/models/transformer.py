@@ -91,7 +91,7 @@ class EncoderLayer(nn.Module):
         q = self._heads(self.q_proj(x))
         k = self._heads(self.k_proj(source))
         v = self._heads(self.v_proj(source))
-        message, _ = gam_kernels.box_window_attention(
+        message, _ = gam_kernels.box_window_attention_fwd(
             q, k, v, centers, grid_hw, radius, mask_fill)
         return self._finish(x, message)
 

@@ -14,21 +14,28 @@ Counterpart of geoformer_tpu/ops/pallas_attention.py:
 * K3 ``masked_kv_attention_bwd`` replaces ``_mka_bwd_pallas`` and its
   kernel ``_mka_bwd_kernel``. Source: ``csrc/masked_kv_attention_bwd.cu``.
 
-``box_window_attention`` and ``masked_kv_attention`` are the differentiable
-ops (``torch.autograd.Function``, the counterparts of the two
-``custom_vjp``s); the mask and the centres get no gradient.
+Each kernel is a ``torch.library`` custom op in the ``geoformer``
+namespace (``torch.ops.geoformer.<name>``, OPS below): its CPU
+implementation is the plain version, its CUDA implementation launches the
+kernel or raises (it never falls back), and a fake implementation gives the
+output shapes and dtypes, so ``torch.export`` and ``torch.compile`` trace
+through the kernels as single calls. The functions of this module are the
+ops' Python wrappers. K1 and K2 carry their gradients
+(``torch.library.register_autograd``, the counterparts of the two
+``custom_vjp``s): K1's through K5 and K4 from the saved out and LSE, K2's
+through K3 from the saved output and row statistics; the mask and the
+centres get none. Importing this module registers the ops, and needs
+nothing but torch.
 
-A wrapper given CPU tensors computes the plain version. Given CUDA tensors it
-launches the kernel or raises; it never falls back. Each call that launches
-adds one to ``LAUNCHES[name]`` (K1, K4 and K5 launch a plan and then the
-pieces, one count a call), so a run can show that its path went through the
-kernel.
+Each call that launches a kernel adds one to ``LAUNCHES[name]`` (K1, K4 and
+K5 launch a plan and then the pieces, one count a call), so a run can show
+that its path went through the kernel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -42,6 +49,10 @@ LAUNCHES = {"box_window_attention": 0, "masked_kv_attention": 0,
 
 _HEAD_DIM = 64  # the kernels' compiled head width (d_model 256 / 4 heads)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the custom ops, torch.ops.geoformer.<name>
+OPS = ("box_window_attention_fwd", "box_window_attention_bwd_dq",
+       "box_window_attention_bwd_dkv", "masked_kv_attention_fwd",
+       "masked_kv_attention_bwd")
 
 
 def reset_launch_counts() -> None:
@@ -49,9 +60,13 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _acc(x: torch.Tensor) -> torch.Tensor:
     """x in its accumulation type: f32 for f32 and bf16, f64 for f64."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+    return x.to(_acc_dtype(x.dtype))
 
 
 def _check_cuda_inputs(name, floats, others):
@@ -72,6 +87,12 @@ def _check_cuda_inputs(name, floats, others):
                         f"(float32 or bfloat16)")
 
 
+def _contiguous(ts):
+    """The ops' outputs are contiguous, as their fakes say (the plain
+    versions' einsums may give other strides)."""
+    return tuple(t.contiguous() for t in ts)
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -81,11 +102,6 @@ def _launch(name: str, fn, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch error {err}")
     LAUNCHES[name] += 1
-
-
-def _require_cuda(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {t.device}")
 
 
 def _check_box_shapes(name, q, k, v, centers, grid_hw):
@@ -144,27 +160,18 @@ def box_window_attention_plain(q, k, v, centers, grid_hw, radius: int = 2,
     return out.to(q.dtype), lse
 
 
-def box_window_attention_fwd(q, k, v, centers, grid_hw, radius: int = 2,
-                             mask_fill: float = -1e8
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1. Gather-free GAM cross attention: query l attends to the
-    destination cells (sx, sy) with |sx - cx| <= r and |sy - cy| <= r
-    around its centre. On the card one call is three launches (the two of
-    the plan that box_gather_schedule mirrors, then the pieces) and one
-    count in LAUNCHES; radius 1, 2 or 3 (the kernels are compiled for
-    those box widths).
+@torch.library.custom_op("geoformer::box_window_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def _box_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                centers: torch.Tensor, grid_hw: Sequence[int], radius: int,
+                mask_fill: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _contiguous(box_window_attention_plain(
+        q, k, v, centers, tuple(grid_hw), radius, mask_fill))
 
-    Args:
-        q: [B, L, H, D]; k, v: [B, S, H, D] with S = grid_hw[0] * grid_hw[1].
-        centers: [B, L, 2] int32 (cx, cy) in destination cells; off-grid
-            values are allowed.
-    Returns:
-        (out [B, L, H, D] in q.dtype, lse [B, L, H] f32).
-    """
-    if q.device.type == "cpu":
-        return box_window_attention_plain(q, k, v, centers, grid_hw, radius,
-                                          mask_fill)
-    _require_cuda("box_window_attention", q)
+
+@_box_fwd_op.register_kernel("cuda")
+def _box_fwd_cuda(q, k, v, centers, grid_hw, radius, mask_fill):
+    grid_hw = tuple(grid_hw)
     _check_box_shapes("box_window_attention", q, k, v, centers, grid_hw)
     _check_gather_radius("box_window_attention", radius)
     _check_cuda_inputs("box_window_attention", (q, k, v), (centers,))
@@ -182,6 +189,34 @@ def box_window_attention_fwd(q, k, v, centers, grid_hw, radius: int = 2,
                 hd, wd, radius, plan.numel(), 1.0 / math.sqrt(d), mask_fill,
                 _DTYPES[q.dtype], _stream(q.device))
     return out, lse
+
+
+@_box_fwd_op.register_fake
+def _box_fwd_fake(q, k, v, centers, grid_hw, radius, mask_fill):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:3], dtype=_acc_dtype(q.dtype)))
+
+
+def box_window_attention_fwd(q, k, v, centers, grid_hw, radius: int = 2,
+                             mask_fill: float = -1e8
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1. Gather-free GAM cross attention: query l attends to the
+    destination cells (sx, sy) with |sx - cx| <= r and |sy - cy| <= r
+    around its centre. On the card one call is three launches (the two of
+    the plan that box_gather_schedule mirrors, then the pieces) and one
+    count in LAUNCHES; radius 1, 2 or 3 (the kernels are compiled for
+    those box widths). Differentiable in q, k and v (backward K5/K4).
+
+    Args:
+        q: [B, L, H, D]; k, v: [B, S, H, D] with S = grid_hw[0] * grid_hw[1].
+        centers: [B, L, 2] int32 (cx, cy) in destination cells; off-grid
+            values are allowed.
+    Returns:
+        (out [B, L, H, D] in q.dtype, lse [B, L, H] f32; f64 for f64 on the
+        CPU). The LSE gets no gradient.
+    """
+    return torch.ops.geoformer.box_window_attention_fwd(
+        q, k, v, centers, list(grid_hw), radius, mask_fill)
 
 
 # K1 and K5 sort their queries by the destination tile that holds their
@@ -266,6 +301,43 @@ def _box_gather_scratch(b, l, grid_hw, radius, device) -> torch.Tensor:
 
 # ------------------------------------------------------------- K4, K5 ------
 
+def _box_bwd_dl(q, k, v, centers, lse, delta, g, grid_hw, radius):
+    """(p, dl) [B, L, S, H] of K1's backward, in the accumulation type."""
+    s = k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qa, ka, va, ga = _acc(q), _acc(k), _acc(v), _acc(g)
+    box = _box_mask(centers, grid_hw, radius, s, q.device)[..., None]
+    z = scale * torch.einsum("blhd,bshd->blsh", qa, ka) \
+        - lse.to(qa.dtype)[:, :, None, :]
+    p = torch.exp(z.masked_fill(~box, float("-inf")))
+    dp = torch.einsum("blhd,bshd->blsh", ga, va)
+    dl = p * (dp - delta.to(qa.dtype)[:, :, None, :]) * scale
+    return p, dl
+
+
+def box_window_attention_bwd_dq_plain(q, k, v, centers, lse, delta, g,
+                                      grid_hw, radius: int = 2):
+    """K5's plain version: dq = dl k (box_window_attention_bwd_plain), in
+    the accumulation type."""
+    _, dl = _box_bwd_dl(q, k, v, centers, lse, delta, g, grid_hw, radius)
+    return torch.einsum("blsh,bshd->blhd", dl, _acc(k))
+
+
+def box_window_attention_bwd_dkv_plain(q, k, v, centers, lse, delta, g,
+                                       grid_hw, radius: int = 2):
+    """K4's plain version: (dk, dv) = (dl^T q, p^T g), in the accumulation
+    type."""
+    p, dl = _box_bwd_dl(q, k, v, centers, lse, delta, g, grid_hw, radius)
+    return (torch.einsum("blsh,blhd->bshd", dl, _acc(q)),
+            torch.einsum("blsh,blhd->bshd", p, _acc(g)))
+
+
+def _box_delta(out, g):
+    """delta = rowsum(g * out) [B, L, H] in the accumulation type, a torch
+    op beside the kernels, as in the JAX package."""
+    return (_acc(g) * _acc(out)).sum(-1)
+
+
 def box_window_attention_bwd_plain(q, k, v, centers, out, lse, g, grid_hw,
                                    radius: int = 2):
     """K1's backward by the explicit formulas of the TPU kernels K4/K5,
@@ -276,19 +348,11 @@ def box_window_attention_bwd_plain(q, k, v, centers, out, lse, g, grid_hw,
         dl = p (g.v - delta) scale; dq = dl k; dk = dl^T q; dv = p^T g.
 
     Returns (dq, dk, dv) in the dtypes of q, k, v."""
-    s = k.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    qa, ka, va, ga = _acc(q), _acc(k), _acc(v), _acc(g)
-    box = _box_mask(centers, grid_hw, radius, s, q.device)[..., None]
-    delta = (ga * _acc(out)).sum(-1)                           # [B, L, H]
-    z = scale * torch.einsum("blhd,bshd->blsh", qa, ka) \
-        - lse.to(qa.dtype)[:, :, None, :]
-    p = torch.exp(z.masked_fill(~box, float("-inf")))
-    dp = torch.einsum("blhd,bshd->blsh", ga, va)
-    dl = p * (dp - delta[:, :, None, :]) * scale
-    dq = torch.einsum("blsh,bshd->blhd", dl, ka)
-    dk = torch.einsum("blsh,blhd->bshd", dl, qa)
-    dv = torch.einsum("blsh,blhd->bshd", p, ga)
+    delta = _box_delta(out, g)
+    dq = box_window_attention_bwd_dq_plain(q, k, v, centers, lse, delta, g,
+                                           grid_hw, radius)
+    dk, dv = box_window_attention_bwd_dkv_plain(q, k, v, centers, lse, delta,
+                                                g, grid_hw, radius)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -296,7 +360,6 @@ def _box_bwd_launch(name, fn, q, k, v, centers, gf, lse, delta, outs,
                     scratch, grid_hw, radius, ints=()):
     """Checks the inputs of K4/K5 and launches one of them; ints follow
     the radius in the kernel's arguments."""
-    _require_cuda(name, q)
     _check_box_shapes(name, q, k, v, centers, grid_hw)
     if gf.shape != q.shape or gf.dtype != torch.float32 or \
             lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
@@ -356,33 +419,59 @@ def box_dkv_schedule(centers, grid_hw, radius: int = 2):
     return n, pieces, base
 
 
-def box_window_attention_bwd_dq(q, k, v, centers, lse, delta, gf, grid_hw,
-                                radius: int = 2) -> torch.Tensor:
-    """K5: f32 dq [B, L, H, D] of box-window attention from the forward's
-    LSE, delta = rowsum(g * out) and the f32 output gradient gf (all
-    contiguous, on the card; box_window_attention_bwd is the entry point
-    that also takes CPU tensors). Three launches, as K1's: the plan of
-    box_gather_schedule into its own int32 scratch, then the pieces."""
+@torch.library.custom_op("geoformer::box_window_attention_bwd_dq",
+                         mutates_args=(), device_types="cpu")
+def _box_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               centers: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+               g: torch.Tensor, grid_hw: Sequence[int],
+               radius: int) -> torch.Tensor:
+    return box_window_attention_bwd_dq_plain(
+        q, k, v, centers, lse, delta, g, tuple(grid_hw), radius).contiguous()
+
+
+@_box_dq_op.register_kernel("cuda")
+def _box_dq_cuda(q, k, v, centers, lse, delta, g, grid_hw, radius):
+    grid_hw = tuple(grid_hw)
     _check_gather_radius("box_window_attention_bwd_dq", radius)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     plan = _box_gather_scratch(q.shape[0], q.shape[1], grid_hw, radius,
                                q.device)
     _box_bwd_launch("box_window_attention_bwd_dq",
                     load_library().gam_box_window_attention_bwd_dq, q, k, v,
-                    centers, gf, lse, delta, [dq], [plan], grid_hw, radius,
+                    centers, g, lse, delta, [dq], [plan], grid_hw, radius,
                     ints=(plan.numel(),))
     return dq
 
 
-def box_window_attention_bwd_dkv(q, k, v, centers, lse, delta, gf, grid_hw,
-                                 radius: int = 2):
-    """K4: f32 (dk, dv) [B, S, H, D] of box-window attention, inputs as
-    box_window_attention_bwd_dq. Scratch, sized without reading the
-    centres (P = box_dkv_max_pieces(L, S, r), n = (Hg + 2r)(Wg + 2r)
-    buckets of centre cells): the plan of the work (int32 bucket starts
-    [B, n + 1], per-chunk bucket counts [B, ceil(L / 256), n], each
-    query's bucket and the queries' order [B, L], piece_base [B, S + 1],
-    piece_key [B, P]) and the pieces' partial sums (f32 [B, P, H, 2, D])."""
+@_box_dq_op.register_fake
+def _box_dq_fake(q, k, v, centers, lse, delta, g, grid_hw, radius):
+    return q.new_empty(q.shape, dtype=_acc_dtype(q.dtype))
+
+
+def box_window_attention_bwd_dq(q, k, v, centers, lse, delta, gf, grid_hw,
+                                radius: int = 2) -> torch.Tensor:
+    """K5: dq [B, L, H, D] of box-window attention from the forward's LSE,
+    delta = rowsum(g * out) and the output gradient gf, in the accumulation
+    type (on the card: all f32 but q, k, v, contiguous). Three launches, as
+    K1's: the plan of box_gather_schedule into its own int32 scratch, then
+    the pieces."""
+    return torch.ops.geoformer.box_window_attention_bwd_dq(
+        q, k, v, centers, lse, delta, gf, list(grid_hw), radius)
+
+
+@torch.library.custom_op("geoformer::box_window_attention_bwd_dkv",
+                         mutates_args=(), device_types="cpu")
+def _box_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                centers: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                g: torch.Tensor, grid_hw: Sequence[int],
+                radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _contiguous(box_window_attention_bwd_dkv_plain(
+        q, k, v, centers, lse, delta, g, tuple(grid_hw), radius))
+
+
+@_box_dkv_op.register_kernel("cuda")
+def _box_dkv_cuda(q, k, v, centers, lse, delta, g, grid_hw, radius):
+    grid_hw = tuple(grid_hw)
     b, l = q.shape[:2]
     s, h = k.shape[1:3]
     hd, wd = grid_hw
@@ -400,59 +489,67 @@ def box_window_attention_bwd_dkv(q, k, v, centers, lse, delta, gf, grid_hw,
                     device=q.device)]
     _box_bwd_launch("box_window_attention_bwd_dkv",
                     load_library().gam_box_window_attention_bwd_dkv, q, k, v,
-                    centers, gf, lse, delta, [dk, dv], scratch, grid_hw,
+                    centers, g, lse, delta, [dk, dv], scratch, grid_hw,
                     radius, ints=(pieces,))
     return dk, dv
+
+
+@_box_dkv_op.register_fake
+def _box_dkv_fake(q, k, v, centers, lse, delta, g, grid_hw, radius):
+    dtype = _acc_dtype(q.dtype)
+    return k.new_empty(k.shape, dtype=dtype), k.new_empty(k.shape,
+                                                          dtype=dtype)
+
+
+def box_window_attention_bwd_dkv(q, k, v, centers, lse, delta, gf, grid_hw,
+                                 radius: int = 2):
+    """K4: (dk, dv) [B, S, H, D] of box-window attention in the
+    accumulation type, inputs as box_window_attention_bwd_dq. Scratch on
+    the card, sized without reading the centres (P = box_dkv_max_pieces(L,
+    S, r), n = (Hg + 2r)(Wg + 2r) buckets of centre cells): the plan of the
+    work (int32 bucket starts [B, n + 1], per-chunk bucket counts [B,
+    ceil(L / 256), n], each query's bucket and the queries' order [B, L],
+    piece_base [B, S + 1], piece_key [B, P]) and the pieces' partial sums
+    (f32 [B, P, H, 2, D])."""
+    return torch.ops.geoformer.box_window_attention_bwd_dkv(
+        q, k, v, centers, lse, delta, gf, list(grid_hw), radius)
 
 
 def box_window_attention_bwd(q, k, v, centers, out, lse, g, grid_hw,
                              radius: int = 2):
     """K5 (dq) and K4 (dk/dv): the backward of box_window_attention_fwd
-    from its out and LSE. delta = rowsum(g * out) is a torch op, as in the
-    JAX package. Returns (dq, dk, dv) in the dtypes of q, k, v."""
-    if q.device.type == "cpu":
-        return box_window_attention_bwd_plain(q, k, v, centers, out, lse, g,
-                                              grid_hw, radius)
-    _require_cuda("box_window_attention_bwd", q)
-    gf = g.float().contiguous()
-    lse = lse.float().contiguous()
-    delta = (gf * out.float()).sum(-1).contiguous()
-    dq = box_window_attention_bwd_dq(q, k, v, centers, lse, delta, gf,
+    from its out and LSE, with delta = rowsum(g * out) computed by torch.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    ga = _acc(g).contiguous()
+    lse = lse.to(ga.dtype).contiguous()
+    delta = _box_delta(out, g).contiguous()
+    dq = box_window_attention_bwd_dq(q, k, v, centers, lse, delta, ga,
                                      grid_hw, radius)
-    dk, dv = box_window_attention_bwd_dkv(q, k, v, centers, lse, delta, gf,
+    dk, dv = box_window_attention_bwd_dkv(q, k, v, centers, lse, delta, ga,
                                           grid_hw, radius)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class _BoxWindowAttention(torch.autograd.Function):
-    """Counterpart of the custom_vjp of box_window_attention
-    (pallas_attention.py:499,613,686-704): K1 forward, K5/K4 backward from
-    the saved out and LSE."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, centers, grid_hw, radius, mask_fill):
-        out, lse = box_window_attention_fwd(q, k, v, centers, grid_hw,
-                                            radius, mask_fill)
-        ctx.save_for_backward(q, k, v, centers, out, lse)
-        ctx.grid_hw, ctx.radius = grid_hw, radius
-        ctx.mark_non_differentiable(lse)
-        return out, lse
-
-    @staticmethod
-    def backward(ctx, g, _g_lse):
-        q, k, v, centers, out, lse = ctx.saved_tensors
-        dq, dk, dv = box_window_attention_bwd(q, k, v, centers, out, lse, g,
-                                              ctx.grid_hw, ctx.radius)
-        return dq, dk, dv, None, None, None, None
+def _box_fwd_setup(ctx, inputs, output):
+    q, k, v, centers, grid_hw, radius, _ = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, centers, out, lse)
+    ctx.grid_hw, ctx.radius = tuple(grid_hw), radius
+    ctx.mark_non_differentiable(lse)
 
 
-def box_window_attention(q, k, v, centers, grid_hw, radius: int = 2,
-                         mask_fill: float = -1e8
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable K1 (backward K5/K4): (out, lse) as
-    box_window_attention_fwd; the LSE and the centres get no gradient."""
-    return _BoxWindowAttention.apply(q, k, v, centers, tuple(grid_hw),
-                                     radius, mask_fill)
+def _box_fwd_backward(ctx, g, _g_lse):
+    q, k, v, centers, out, lse = ctx.saved_tensors
+    dq, dk, dv = box_window_attention_bwd(q, k, v, centers, out, lse, g,
+                                          ctx.grid_hw, ctx.radius)
+    return dq, dk, dv, None, None, None, None
+
+
+# counterpart of the custom_vjp of box_window_attention
+# (pallas_attention.py:499,613,686-704)
+torch.library.register_autograd("geoformer::box_window_attention_fwd",
+                                _box_fwd_backward,
+                                setup_context=_box_fwd_setup)
 
 
 # ---------------------------------------------------------------- K2 -------
@@ -502,18 +599,20 @@ def masked_kv_attention_plain(q, k, v, kv_mask, mask_fill: float = -1e8,
     return out, _mka_stats(q, k, kv_mask, mask_fill)
 
 
-def masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill: float = -1e8,
-                            return_stats: bool = False):
-    """K2. Masked-KV softmax attention. q: [B, L, H, D]; k, v: [B, S, H, D];
-    kv_mask: [B, S] (true keeps the column). Returns f32 [B, L, H, D]; a
-    batch row whose mask is all false gets the mean of its S value rows.
-    With return_stats, returns (out, stats) where stats [2, B, L, H] f32
-    holds each row's max and log-denominator of the masked logits (for a
-    row with no kept key, scale * mask_fill and log S)."""
-    if q.device.type == "cpu":
-        return masked_kv_attention_plain(q, k, v, kv_mask, mask_fill,
-                                         return_stats)
-    _require_cuda("masked_kv_attention", q)
+@torch.library.custom_op("geoformer::masked_kv_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def _mka_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_mask: torch.Tensor, mask_fill: float,
+                return_stats: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not return_stats:
+        out = masked_kv_attention_plain(q, k, v, kv_mask, mask_fill)
+        return out.contiguous(), out.new_empty((0,))
+    return _contiguous(masked_kv_attention_plain(q, k, v, kv_mask, mask_fill,
+                                                 True))
+
+
+@_mka_fwd_op.register_kernel("cuda")
+def _mka_fwd_cuda(q, k, v, kv_mask, mask_fill, return_stats):
     _check_mka_shapes("masked_kv_attention", q, k, v, kv_mask)
     _check_fill("masked_kv_attention", mask_fill)
     b, l, h, d = q.shape
@@ -522,8 +621,8 @@ def masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill: float = -1e8,
     _check_cuda_inputs("masked_kv_attention", (q, k, v), (mask,))
     lib = load_library()
     out = torch.empty((b, l, h, d), dtype=torch.float32, device=q.device)
-    stats = (torch.empty((2, b, l, h), dtype=torch.float32, device=q.device)
-             if return_stats else None)
+    stats = torch.empty((2, b, l, h) if return_stats else (0,),
+                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _launch("masked_kv_attention", lib.gam_masked_kv_attention,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
@@ -532,6 +631,28 @@ def masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill: float = -1e8,
                 stats[1].data_ptr() if return_stats else None,
                 b, l, s, h, 1.0 / math.sqrt(d), mask_fill,
                 _DTYPES[q.dtype], _stream(q.device))
+    return out, stats
+
+
+@_mka_fwd_op.register_fake
+def _mka_fwd_fake(q, k, v, kv_mask, mask_fill, return_stats):
+    dtype = _acc_dtype(q.dtype)
+    stats = (2,) + tuple(q.shape[:3]) if return_stats else (0,)
+    return q.new_empty(q.shape, dtype=dtype), q.new_empty(stats, dtype=dtype)
+
+
+def masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill: float = -1e8,
+                            return_stats: bool = False):
+    """K2. Masked-KV softmax attention. q: [B, L, H, D]; k, v: [B, S, H, D];
+    kv_mask: [B, S] (true keeps the column). Returns f32 [B, L, H, D] (f64
+    for f64 on the CPU); a batch row whose mask is all false gets the mean
+    of its S value rows. With return_stats, returns (out, stats) where
+    stats [2, B, L, H] f32 holds each row's max and log-denominator of the
+    masked logits (for a row with no kept key, scale * mask_fill and log
+    S). Differentiable in q, k and v (backward K3, from the statistics when
+    the forward kept them)."""
+    out, stats = torch.ops.geoformer.masked_kv_attention_fwd(
+        q, k, v, kv_mask, mask_fill, return_stats)
     return (out, stats) if return_stats else out
 
 
@@ -563,22 +684,20 @@ def masked_kv_attention_bwd_plain(q, k, v, kv_mask, g,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def masked_kv_attention_bwd(q, k, v, kv_mask, g, mask_fill: float = -1e8,
-                            out=None, stats=None):
-    """K3: the backward of masked_kv_attention_fwd for the output gradient
-    g [B, L, H, D], from the forward's output and row statistics
-    (masked_kv_attention_fwd(..., return_stats=True)); without them it
-    runs that forward first. Returns (dq, dk, dv) in the dtypes of q, k, v;
-    a row whose mask is all false gets dv = colsum(g) / S and dq = dk = 0."""
-    if q.device.type == "cpu":
-        return masked_kv_attention_bwd_plain(q, k, v, kv_mask, g, mask_fill,
-                                             out, stats)
-    _require_cuda("masked_kv_attention_bwd", q)
+@torch.library.custom_op("geoformer::masked_kv_attention_bwd",
+                         mutates_args=(), device_types="cpu")
+def _mka_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_mask: torch.Tensor, g: torch.Tensor, mask_fill: float,
+                out: torch.Tensor, stats: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _contiguous(masked_kv_attention_bwd_plain(q, k, v, kv_mask, g,
+                                                     mask_fill, out, stats))
+
+
+@_mka_bwd_op.register_kernel("cuda")
+def _mka_bwd_cuda(q, k, v, kv_mask, g, mask_fill, out, stats):
     _check_mka_shapes("masked_kv_attention_bwd", q, k, v, kv_mask)
     _check_fill("masked_kv_attention_bwd", mask_fill)
-    if out is None or stats is None:
-        out, stats = masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill,
-                                             return_stats=True)
     b, l, h, d = q.shape
     s = k.shape[1]
     gf = g.float().contiguous()
@@ -616,34 +735,54 @@ def masked_kv_attention_bwd(q, k, v, kv_mask, g, mask_fill: float = -1e8,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class _MaskedKVAttention(torch.autograd.Function):
-    """Counterpart of the custom_vjp of masked_kv_attention
-    (pallas_attention.py:52,106,212-229): K2 forward, K3 backward from the
-    forward's output and row statistics."""
+@_mka_bwd_op.register_fake
+def _mka_bwd_fake(q, k, v, kv_mask, g, mask_fill, out, stats):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_mask, mask_fill, need_grad):
-        ctx.mask_fill = mask_fill
-        if not need_grad:
-            return masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill)
+
+def masked_kv_attention_bwd(q, k, v, kv_mask, g, mask_fill: float = -1e8,
+                            out=None, stats=None):
+    """K3: the backward of masked_kv_attention_fwd for the output gradient
+    g [B, L, H, D], from the forward's output and row statistics
+    (masked_kv_attention_fwd(..., return_stats=True)); without them it
+    runs that forward first. Returns (dq, dk, dv) in the dtypes of q, k, v;
+    a row whose mask is all false gets dv = colsum(g) / S and dq = dk = 0."""
+    if out is None or stats is None:
         out, stats = masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill,
                                              return_stats=True)
-        ctx.save_for_backward(q, k, v, kv_mask, out, stats)
-        return out
+    return torch.ops.geoformer.masked_kv_attention_bwd(
+        q, k, v, kv_mask, g, mask_fill, out, stats)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, kv_mask, out, stats = ctx.saved_tensors
-        dq, dk, dv = masked_kv_attention_bwd(q, k, v, kv_mask, g,
-                                             ctx.mask_fill, out, stats)
-        return dq, dk, dv, None, None, None
+
+def _mka_fwd_setup(ctx, inputs, output):
+    q, k, v, kv_mask, mask_fill, _ = inputs
+    out, stats = output
+    ctx.save_for_backward(q, k, v, kv_mask, out, stats)
+    ctx.mask_fill = mask_fill
+    ctx.mark_non_differentiable(stats)
+
+
+def _mka_fwd_backward(ctx, g, _g_stats):
+    q, k, v, kv_mask, out, stats = ctx.saved_tensors
+    dq, dk, dv = masked_kv_attention_bwd(
+        q, k, v, kv_mask, g, ctx.mask_fill, out,
+        stats if stats.numel() else None)
+    return dq, dk, dv, None, None, None
+
+
+# counterpart of the custom_vjp of masked_kv_attention
+# (pallas_attention.py:52,106,212-229)
+torch.library.register_autograd("geoformer::masked_kv_attention_fwd",
+                                _mka_fwd_backward,
+                                setup_context=_mka_fwd_setup)
 
 
 def masked_kv_attention(q, k, v, kv_mask, mask_fill: float = -1e8
                         ) -> torch.Tensor:
-    """Differentiable K2 (backward K3), as masked_kv_attention_fwd; the
-    mask gets no gradient. The forward keeps its row statistics only when
-    a gradient can flow."""
+    """The GAM self layers' entry: masked_kv_attention_fwd (K2, backward
+    K3), keeping the row statistics only when a gradient can flow."""
     need_grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
-    return _MaskedKVAttention.apply(q, k, v, kv_mask, mask_fill, need_grad)
+    out = masked_kv_attention_fwd(q, k, v, kv_mask, mask_fill,
+                                  return_stats=need_grad)
+    return out[0] if need_grad else out

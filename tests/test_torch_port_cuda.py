@@ -53,7 +53,7 @@ def test_box_kernel_matches_plain(dev, dtype):
     c[0, :10] = torch.tensor([-10, -10], dtype=torch.int32)  # off the grid
     c = c.to(dev)
     gk.reset_launch_counts()
-    out, lse = gk.box_window_attention(q, k, v, c, (hg, wg))
+    out, lse = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
     assert gk.LAUNCHES["box_window_attention"] == 1
     ref, ref_lse = gk.box_window_attention_plain(q, k, v, c, (hg, wg))
     assert out.dtype == dt and lse.dtype == torch.float32
@@ -161,7 +161,7 @@ def test_autograd_functions_run_the_backward_kernels(dev):
         torch.int32).to(dev)
     mask = (torch.rand((1, hg * wg), generator=gen) > 0.3).to(dev)
     gk.reset_launch_counts()
-    out, _ = gk.box_window_attention(q, k, v, c, (hg, wg))
+    out, _ = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
     (out.sum() + gk.masked_kv_attention(q, k, v, mask).sum()).backward()
     assert all(n == 1 for n in gk.LAUNCHES.values()), gk.LAUNCHES
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
@@ -618,7 +618,7 @@ def test_box_kernel_at_the_fire_and_isc_shapes(dev, dtype, case):
     gen = torch.Generator().manual_seed(5)
     q, k, v = (_rand(gen, (b, hg * wg, 4, 64), dt, dev) for _ in range(3))
     c = _homography_centres(b, (hg, wg), gen).to(dev)
-    out, lse = gk.box_window_attention(q, k, v, c, (hg, wg))
+    out, lse = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
     ref, ref_lse = gk.box_window_attention_plain(q, k, v, c, (hg, wg))
     tol = 2e-2 if dt == torch.bfloat16 else 1e-5
     assert (out.float() - ref.float()).abs().max().item() <= tol

@@ -54,7 +54,8 @@ def test_box_plain_matches_pallas_interpret(force_tiled, seed):
     ref_out, ref_lse = _box_forward(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(centers),
         grid, 2, FILL, 8, 8, interpret=True, force_tiled=force_tiled)
-    out, lse = gk.box_window_attention(t(q), t(k), t(v), t(centers), grid, 2)
+    out, lse = gk.box_window_attention_fwd(t(q), t(k), t(v), t(centers),
+                                           grid, 2)
     assert out.dtype == torch.float32 and lse.shape == (2, 48, 2)
     assert_close(out, ref_out, 1e-4, 1e-5, "out")
     off = _offgrid(centers, grid)
@@ -88,9 +89,10 @@ def test_box_plain_matches_reference_radius(radius):
 
 def test_box_plain_keeps_bf16_out_and_f32_lse():
     q, k, v, centers, grid = _box_inputs(4)
-    out, lse = gk.box_window_attention(t(q, torch.bfloat16),
-                                       t(k, torch.bfloat16),
-                                       t(v, torch.bfloat16), t(centers), grid)
+    out, lse = gk.box_window_attention_fwd(t(q, torch.bfloat16),
+                                           t(k, torch.bfloat16),
+                                           t(v, torch.bfloat16), t(centers),
+                                           grid)
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     ref, _ = gk.box_window_attention_plain(
         t(q, torch.bfloat16).float(), t(k, torch.bfloat16).float(),
@@ -144,7 +146,7 @@ def test_mka_bf16_inputs_give_f32_matching_pallas():
 def test_cpu_wrappers_do_not_count_launches():
     gk.reset_launch_counts()
     q, k, v, centers, grid = _box_inputs(7)
-    gk.box_window_attention(t(q), t(k), t(v), t(centers), grid)
+    gk.box_window_attention_fwd(t(q), t(k), t(v), t(centers), grid)
     q, k, v, mask = _mka_inputs(7)
     gk.masked_kv_attention(t(q), t(k), t(v), t(mask))
     assert set(gk.LAUNCHES) >= {"box_window_attention",
@@ -154,12 +156,16 @@ def test_cpu_wrappers_do_not_count_launches():
 
 @pytest.mark.parametrize("fn", ["box", "mka"])
 def test_wrapper_raises_on_device_without_kernel(fn):
-    meta = torch.empty((1, 8, 1, 64), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
+    """The ops have a kernel for cuda, the plain version for cpu and a fake
+    (output shapes only) for meta; any other backend (a sparse CPU tensor
+    here) raises rather than falling back."""
+    sparse = torch.zeros((1, 8, 1, 64)).to_sparse()
+    with pytest.raises(NotImplementedError, match="SparseCPU"):
         if fn == "box":
-            gk.box_window_attention(meta, meta, meta,
-                                    torch.empty((1, 8, 2), device="meta"),
-                                    (2, 4))
+            gk.box_window_attention_fwd(
+                sparse, sparse, sparse,
+                torch.zeros((1, 8, 2), dtype=torch.int32).to_sparse(),
+                (2, 4))
         else:
-            gk.masked_kv_attention(meta, meta, meta,
-                                   torch.empty((1, 8), device="meta"))
+            gk.masked_kv_attention(sparse, sparse, sparse,
+                                   torch.ones((1, 8)).to_sparse())

@@ -1,8 +1,9 @@
 """The port stands alone: torch, numpy and the standard library only.
 
 Neither geoformer_tpu_torch nor chip_smoke.py may import JAX, flax, the JAX
-package, cv2 or PIL (the card's machine has none of them), and chip_smoke.py
-must fail, printing no result, where there is no CUDA device or no port.
+package, cv2, PIL or matplotlib (the card's machine has none of them), and
+chip_smoke.py must fail, printing no result, where there is no CUDA device
+or no port.
 """
 
 import ast
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "geoformer_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "geoformer_tpu",
-             "cv2", "PIL", "kornia"}
+             "cv2", "PIL", "kornia", "matplotlib"}
 ALLOWED = {"torch", "numpy", "geoformer_tpu_torch"}
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 OK_LINE = '{"ok": true'

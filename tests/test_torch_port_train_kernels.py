@@ -324,7 +324,7 @@ def test_autograd_functions_route_through_the_backwards():
     q, k, v, g, centers, grid = _box_inputs(3)
     qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
     gk.reset_launch_counts()
-    out, lse = gk.box_window_attention(qt, kt, vt, t(centers), grid)
+    out, lse = gk.box_window_attention_fwd(qt, kt, vt, t(centers), grid)
     assert not lse.requires_grad
     out.backward(t(g))
     ref = gk.box_window_attention_bwd(t(q), t(k), t(v), t(centers),
@@ -384,7 +384,7 @@ def test_gradcheck_box_window_attention_f64():
     centers = torch.randint(-1, 5, (1, 12, 2), generator=gen).to(torch.int32)
     centers[0, 0] = torch.tensor([-9, -9], dtype=torch.int32)
     assert torch.autograd.gradcheck(
-        lambda a, b, c: gk.box_window_attention(a, b, c, centers, grid)[0],
+        lambda a, b, c: gk.box_window_attention_fwd(a, b, c, centers, grid)[0],
         (q, k, v))
 
 
