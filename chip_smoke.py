@@ -96,6 +96,23 @@ Phases, each printing its own lines and its seconds:
    valid matches equal to the eager forward's with the same RANSAC noise
    and its keypoints within 1e-4 px, its ms per call beside the eager
    BatchedMatcher's.
+12. depth: the depth-supervised path at the JAX record's recipe (`cli
+   train-depth --imsize 640 --batch 4 --depth-pad 640 --pallas`, f32):
+   the cluttered corpus's 6 val scenes and 2 train scenes rendered by the
+   port (data/depth_corpus.py) into a temporary directory, its JPEG and
+   HDF5 read times; run_depth_training from random weights for 4 steps
+   with a 1-batch validation, K1-K5 at 4 launches a train step and K1/K2
+   at 4 (K3-K5 at 0) a val step, its files, ms per step and peak memory;
+   `cli train-depth` in a subprocess; the gate on the trained depth
+   checkpoint (eval/depth_gate.py: 8 batches of 4 from the val stream),
+   each pose AUC within 0.05 of the port's CPU sweep on the same corpus,
+   with the JAX record beside it, prec@5e-04 >= 0.99 and 512 matches a
+   pair, with the pose estimator's ms and host synchronisations per
+   batch; K1 and K2 at the 80x80 grid on the gate's own inputs against
+   their plain versions; one depth train step of the trained checkpoint
+   on a val batch, where RANSAC finds homographies and the cross layers
+   get gradients through K4/K5; and K3, K4 and K5 against their plain
+   backwards on that step's inputs (the 80x80 grid, 20 rows padded).
 
 K1, K4 and K5 (a plan and then the pieces, several launches a call) and
 K2 (and SDPA beside it) are timed on the device by CUDA-graph replay
@@ -108,8 +125,8 @@ Phases 1-7 read no data file: weights come from a seed and images from
 numpy (phase 7 decodes only files it wrote). Phase 8 reads the trained
 checkpoint and the held-out photographs through the port's own loaders,
 phase 9 the checkpoint; phase 9 writes only under a temporary directory,
-as phases 10 and 11 do (their corpora, checkpoint, figures and bundle are
-made there and read back).
+as phases 10-12 do (their corpora, checkpoint, figures and bundle are
+made there and read back). Phase 12 reads checkpoints/tpu_r5_depth2.
 It needs only the standard library, torch and numpy. Any failure
 raises, so the exit code is nonzero; with no CUDA device it stops in
 phase 1. The last line of a successful run is one JSON object naming the
@@ -121,6 +138,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -768,32 +786,32 @@ def _k4_load(gk, centers, grid_hw) -> dict:
                 pieces=int(base[:, -1].max()))
 
 
-def _box_dq_case(gk, q, k, v, g, centers, pattern):
+def _box_dq_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW):
     """K5 alone on one centre pattern: against the plain backward, the
     off-grid rows' zero dq, the same bits twice, ms hot and with L2
-    flushed, the bound, the load."""
+    flushed, the bound, the load; on the 60x80 grid unless ``grid``."""
     from geoformer_tpu_torch.eval import box_kernels as bk
 
     t0 = time.perf_counter()
     dtype = q.dtype
     tol = BWD_TOL[dtype]
-    out, lse = gk.box_window_attention_fwd(q, k, v, centers, GRID_HW, 2)
+    out, lse = gk.box_window_attention_fwd(q, k, v, centers, grid, 2)
     gf = g.float()
     delta = (gf * out.float()).sum(-1)
 
     def run():
         return gk.box_window_attention_bwd_dq(q, k, v, centers, lse, delta,
-                                              gf, GRID_HW, 2)
+                                              gf, grid, 2)
 
     got, again = run(), run()
     ref = gk.box_window_attention_bwd_plain(q, k, v, centers, out, lse, g,
-                                            GRID_HW, 2)[0]
+                                            grid, 2)[0]
     torch.cuda.synchronize()
     same_bits = torch.equal(got, again)
     rel = _rel_err(got.to(dtype), ref)
-    off = _offgrid_rows(centers, GRID_HW)
+    off = _offgrid_rows(centers, grid)
     off_zero = bool((got[off] == 0).all())
-    cells = _box_cells(centers, GRID_HW, 2)
+    cells = _box_cells(centers, grid, 2)
     # q, k, v in their type; f32 g, lse, delta in, f32 dq out
     nbytes = (3 * q.numel() * q.element_size() + 2 * q.numel() * 4
               + centers.numel() * 4 + 2 * lse.numel() * 4)
@@ -808,36 +826,37 @@ def _box_dq_case(gk, q, k, v, g, centers, pattern):
         kernel_ms=f"{ms:.4f}", kernel_cold_ms=f"{cold_ms:.4f}",
         call_ms=f"{call_ms:.4f}",
         bound_ms=f"{bound:.4f}", bound_by=by,
-        **_gather_load(gk, centers, GRID_HW),
+        **_gather_load(gk, centers, grid),
         seconds=f"{time.perf_counter() - t0:.1f}")
     check(rel <= tol, f"K5 {dtype} {pattern}: relative error {rel} > {tol}")
     check(off_zero, f"K5 {dtype} {pattern}: off-grid rows got a gradient")
     check(same_bits, f"K5 {dtype} {pattern}: two calls differ")
 
 
-def _box_dkv_case(gk, q, k, v, g, centers, pattern):
+def _box_dkv_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW):
     """K4 alone on one centre pattern: against the plain backward, the
-    same bits twice, ms hot and with L2 flushed, the bound, the load."""
+    same bits twice, ms hot and with L2 flushed, the bound, the load; on
+    the 60x80 grid unless ``grid``."""
     from geoformer_tpu_torch.eval import box_kernels as bk
 
     t0 = time.perf_counter()
     dtype = q.dtype
     tol = BWD_TOL[dtype]
-    out, lse = gk.box_window_attention_fwd(q, k, v, centers, GRID_HW, 2)
+    out, lse = gk.box_window_attention_fwd(q, k, v, centers, grid, 2)
     gf = g.float()
     delta = (gf * out.float()).sum(-1)
 
     def run():
         return gk.box_window_attention_bwd_dkv(q, k, v, centers, lse, delta,
-                                               gf, GRID_HW, 2)
+                                               gf, grid, 2)
 
     got, again = run(), run()
     ref = gk.box_window_attention_bwd_plain(q, k, v, centers, out, lse, g,
-                                            GRID_HW, 2)[1:]
+                                            grid, 2)[1:]
     torch.cuda.synchronize()
     same_bits = all(torch.equal(a, b_) for a, b_ in zip(got, again))
     rel = max(_rel_err(a.to(dtype), r) for a, r in zip(got, ref))
-    cells = _box_cells(centers, GRID_HW, 2)
+    cells = _box_cells(centers, grid, 2)
     # q, k, v in their type; f32 g, lse, delta in, f32 dk, dv out
     nbytes = (3 * q.numel() * q.element_size() + 3 * q.numel() * 4
               + centers.numel() * 4 + 2 * lse.numel() * 4)
@@ -845,7 +864,7 @@ def _box_dkv_case(gk, q, k, v, g, centers, pattern):
     ms = bk.time_graph_ms(run, 20)
     cold_ms = bk.time_graph_cold_ms(run, 10)
     call_ms = time_ms(run, 20)
-    load = _k4_load(gk, centers, GRID_HW)
+    load = _k4_load(gk, centers, grid)
     log("bwd_kernels", name="box_window_attention_bwd_dkv",
         dtype=str(dtype), centres=pattern, shape=f"q{tuple(q.shape)}",
         rel_err=f"{rel:.3e}", rel_tol=tol, same_bits_twice=same_bits,
@@ -1104,9 +1123,9 @@ def _keep_inputs(gk, *names):
     wrapped = {name: getattr(gk, name) for name in names}
 
     def keeper(name):
-        def keep(*args):
+        def keep(*args, **kwargs):
             calls[name].append(args)
-            return wrapped[name](*args)
+            return wrapped[name](*args, **kwargs)
         return keep
 
     for name in names:
@@ -1703,6 +1722,21 @@ VAL_RELATIVE = ("val_loss", "val_loss_c", "val_loss_d", "val_loss_f",
                 "val_num_matches")
 
 
+def _counted(rec: list, gk, fn):
+    """fn, appending (synchronized ms, launches of each kernel) of each
+    call to rec."""
+    def call(*args, **kwargs):
+        before = dict(gk.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec.append(((time.perf_counter() - t0) * 1e3, {
+            k: v - before[k] for k, v in gk.LAUNCHES.items()}))
+        return out
+    return call
+
+
 @contextlib.contextmanager
 def _instrumented(loop_mod, gk, reference=None):
     """Within the block, run_training's train and val steps record the
@@ -1717,18 +1751,6 @@ def _instrumented(loop_mod, gk, reference=None):
         "make_train_step", "make_val_step", "save_checkpoint",
         "restore_checkpoint")}
     bank = synthetic._procedural_bank
-
-    def counted(kind, fn):
-        def call(*args, **kwargs):
-            before = dict(gk.LAUNCHES)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            rec[kind].append(((time.perf_counter() - t0) * 1e3, {
-                k: v - before[k] for k, v in gk.LAUNCHES.items()}))
-            return out
-        return call
 
     def save(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1750,10 +1772,10 @@ def _instrumented(loop_mod, gk, reference=None):
         rec["bank_s"].append((time.perf_counter() - t0, out.shape))
         return out
 
-    loop_mod.make_train_step = lambda *a: counted(
-        "train", saved["make_train_step"](*a))
-    loop_mod.make_val_step = lambda *a: counted(
-        "val", saved["make_val_step"](*a))
+    loop_mod.make_train_step = lambda *a: _counted(
+        rec["train"], gk, saved["make_train_step"](*a))
+    loop_mod.make_val_step = lambda *a: _counted(
+        rec["val"], gk, saved["make_val_step"](*a))
     loop_mod.save_checkpoint = save
     loop_mod.restore_checkpoint = restore
     synthetic._procedural_bank = build_bank
@@ -2078,37 +2100,8 @@ def _eval_grid_kernels(device):
             q, k, v = (_rand((b, s, HEADS, HEAD_DIM), gen, dtype, device)
                        for _ in range(3))
             centers = bk.homography_centers(b, grid).to(device)
-
-            def run():
-                return gk.box_window_attention_fwd(q, k, v, centers, grid, 2)
-
-            o, lse = run()
-            ref, ref_lse = gk.box_window_attention_plain(q, k, v, centers,
-                                                         grid, 2)
-            torch.cuda.synchronize()
-            err = (o.float() - ref.float()).abs().max().item()
-            valid = ref_lse > -1e6
-            lse_err = (lse - ref_lse)[valid].abs().max().item()
-            tol = TOL[("box_window_attention", dtype)]
-            nbytes = (4 * q.numel() * q.element_size() + centers.numel() * 4
-                      + lse.numel() * 4)
-            bound, by = _bound(nbytes, 4.0 * HEAD_DIM * HEADS
-                               * _box_cells(centers, grid, 2), dtype)
-            ms = bk.time_graph_ms(run, 50)
-            plain_ms = time_ms(lambda: gk.box_window_attention_plain(
-                q, k, v, centers, grid, 2), 3, warmup=1)
-            log("fire_isc", kernel="box_window_attention", case=case,
-                dtype=str(dtype), shape=f"q{tuple(q.shape)}", grid=grid,
-                max_abs_err=f"{err:.3e}", tol=tol,
-                lse_max_abs_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
-                kernel_ms=f"{ms:.4f}", call_ms=f"{time_ms(run, 50):.4f}",
-                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
-                bound_by=by, **_gather_load(gk, centers, grid))
-            check(err <= tol, f"K1 {case} {dtype}: out error {err} > {tol}")
-            check(lse_err <= LSE_TOL, f"K1 {case} {dtype}: lse error "
-                  f"{lse_err}")
-            out[("box_window_attention", case, dtype)] = (ms, bound)
-            del o, ref
+            out[("box_window_attention", case, dtype)] = _k1_vs_plain(
+                gk, q, k, v, centers, grid, "fire_isc", case=case)
             # K2 over the bench configuration's 1024 inlier slots
             k2, v2 = (_rand((b, MAX_INLIERS, HEADS, HEAD_DIM), gen, dtype,
                             device) for _ in range(2))
@@ -2559,6 +2552,322 @@ def phase_released(device):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 12 -----
+
+# The depth-supervised path at the JAX record's recipe (`cli train-depth
+# --imsize 640 --batch 4 --depth-pad 640 --pallas`, f32): a cut of the
+# cluttered corpus (its 6 val scenes, which the gate's stream draws from,
+# and 2 of its 60 train scenes), 4 train steps and a 1-batch validation
+# from random weights, the command in a subprocess, and the gate on the
+# trained checkpoint (eval/depth_gate.py: 8 batches of 4 from the val
+# stream, seed 67).
+DEPTH = dict(train_scenes=2, val_scenes=6, steps=4, batch=4, seed=66,
+             cli_steps=2)
+
+
+@contextlib.contextmanager
+def _depth_instrumented(loop_mod, gk):
+    """Within the block, depth_loop's train and val steps record the ms and
+    the launches of each call, and its pose estimator the ms, the host
+    synchronisations (torch's sync debug mode) and the failed fits of each
+    batch."""
+    import warnings
+
+    rec = {"train": [], "val": [], "pose": []}
+    saved = {n_: getattr(loop_mod, n_) for n_ in (
+        "make_depth_train_step", "make_depth_val_step",
+        "batched_pose_errors")}
+
+    def pose(*args, **kwargs):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                out = saved["batched_pose_errors"](*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        rec["pose"].append((ms, syncs, int((~out[3]).sum())))
+        return out
+
+    loop_mod.make_depth_train_step = lambda *a: _counted(
+        rec["train"], gk, saved["make_depth_train_step"](*a))
+    loop_mod.make_depth_val_step = lambda *a: _counted(
+        rec["val"], gk, saved["make_depth_val_step"](*a))
+    loop_mod.batched_pose_errors = pose
+    try:
+        yield rec
+    finally:
+        for n_, fn in saved.items():
+            setattr(loop_mod, n_, fn)
+
+
+def _k1_vs_plain(gk, q, k, v, centers, grid, tag, **fields):
+    """K1 against its plain version on these inputs (out and in-grid LSE,
+    phase 2's bars), logged under ``tag`` with its device ms beside the
+    plain version's and its bound; returns (ms, bound_ms)."""
+    from geoformer_tpu_torch.eval import box_kernels as bk
+
+    grid = tuple(grid)
+
+    def run():
+        return gk.box_window_attention_fwd(q, k, v, centers, grid, 2)
+
+    out, lse = run()
+    ref, ref_lse = gk.box_window_attention_plain(q, k, v, centers, grid, 2)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    valid = ref_lse > -1e6
+    lse_err = ((lse - ref_lse)[valid].abs().max().item()
+               if bool(valid.any()) else 0.0)
+    tol = TOL[("box_window_attention", q.dtype)]
+    nbytes = (4 * q.numel() * q.element_size() + centers.numel() * 4
+              + lse.numel() * 4)
+    bound, by = _bound(nbytes, 4.0 * HEAD_DIM * HEADS
+                       * _box_cells(centers, grid, 2), q.dtype)
+    del out, ref
+    ms = bk.time_graph_ms(run, 50)
+    plain_ms = time_ms(lambda: gk.box_window_attention_plain(
+        q, k, v, centers, grid, 2), 3, warmup=1)
+    log(tag, kernel="box_window_attention", **fields, dtype=str(q.dtype),
+        shape=f"q{tuple(q.shape)}", grid=grid, max_abs_err=f"{err:.3e}",
+        tol=tol, lse_max_abs_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
+        kernel_ms=f"{ms:.4f}", call_ms=f"{time_ms(run, 50):.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+        **_gather_load(gk, centers, grid))
+    what = " ".join(str(x) for x in fields.values())
+    check(err <= tol, f"K1 {what} {q.dtype}: out error {err} > {tol}")
+    check(lse_err <= LSE_TOL, f"K1 {what} {q.dtype}: lse error {lse_err}")
+    return ms, bound
+
+
+def phase_depth(device):
+    """The depth-supervised path on the card: the corpus rendered by the
+    port, run_depth_training with K1-K5, `cli train-depth` in a
+    subprocess, and the pose-AUC gate on the trained depth checkpoint."""
+    import io
+    import tempfile
+
+    from geoformer_tpu_torch.config import TrainConfig
+    from geoformer_tpu_torch.data import depth_corpus
+    from geoformer_tpu_torch.data.hdf5 import read_dataset
+    from geoformer_tpu_torch.eval import depth_gate as dg
+    from geoformer_tpu_torch.eval.image_io import read_gray
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.train import depth_loop
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="depth_") as tmp:
+        root = Path(tmp) / "corpus"
+        t0 = time.perf_counter()
+        depth_corpus.build(str(root), n_scenes=DEPTH["train_scenes"],
+                           n_val_scenes=DEPTH["val_scenes"],
+                           seed=dg.CORPUS_SEED, cluttered=True)
+        render_s = time.perf_counter() - t0
+        imgs = sorted(root.glob("scenes/val0000/imgs/*"))
+        t0 = time.perf_counter()
+        for f in imgs:
+            read_gray(str(f))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+        deps = sorted(root.glob("scenes/val0000/depths/*"))
+        t0 = time.perf_counter()
+        for f in deps:
+            read_dataset(str(f))
+        h5_ms = (time.perf_counter() - t0) * 1e3 / len(deps)
+        log("depth_render", scenes=DEPTH["train_scenes"] + DEPTH["val_scenes"],
+            views=8 * (DEPTH["train_scenes"] + DEPTH["val_scenes"]),
+            render_s=f"{render_s:.1f}", processes=os.cpu_count(),
+            textures=sorted(depth_corpus.TEXTURES_USED),
+            jpeg_decode_ms_per_image=f"{decode_ms:.1f}",
+            hdf5_read_ms_per_depth=f"{h5_ms:.1f}")
+
+        # 4 train steps from random weights with one 1-batch validation
+        out_dir = Path(tmp) / "run"
+        buf = io.StringIO()
+        gk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _depth_instrumented(depth_loop, gk) as rec, \
+                contextlib.redirect_stdout(buf):
+            state, best = depth_loop.run_depth_training(
+                npz_dir=str(root / "index"), root_dir=str(root),
+                val_npz_dir=str(root / "index_val"), steps=DEPTH["steps"],
+                batch_size=DEPTH["batch"],
+                image_hw=(dg.IMSIZE, dg.IMSIZE), ckpt_dir=str(out_dir),
+                log_every=1, val_every=DEPTH["steps"], n_val_batches=1,
+                seed=DEPTH["seed"], model_cfg=dg.recipe_config(),
+                depth_pad=dg.DEPTH_PAD, device=device)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        files = sorted(p.name for p in out_dir.iterdir())
+        best_steps = sorted(p.name for p in (out_dir / "best").iterdir())
+        del state
+        torch.cuda.empty_cache()
+
+        # the command in a subprocess on the same corpus
+        cli_dir = Path(tmp) / "cli"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "geoformer_tpu_torch.cli", "train-depth",
+             "--npz-dir", str(root / "index"), "--root", str(root),
+             "--imsize", str(dg.IMSIZE), "--depth-pad", str(dg.DEPTH_PAD),
+             "--batch", str(DEPTH["batch"]), "--steps",
+             str(DEPTH["cli_steps"]), "--log-every", "1", "--pallas",
+             "--out", str(cli_dir)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+
+        # the gate on the trained checkpoint
+        gate_state = dg.load_state(device)
+        vb = dg.val_batches(str(root), device)
+        gk.reset_launch_counts()
+        with _depth_instrumented(depth_loop, gk) as grec, \
+                _keep_inputs(gk, "box_window_attention_fwd",
+                             "masked_kv_attention_fwd") as kept:
+            val_fn = depth_loop.make_depth_val_step(TrainConfig(
+                batch_size=dg.BATCH, image_hw=(dg.IMSIZE, dg.IMSIZE)))
+            agg = depth_loop.run_depth_validation(val_fn, gate_state, vb)
+        gate_launches = dict(gk.LAUNCHES)
+
+    train_k = {name: 4 for name in gk.LAUNCHES}
+    val_k = {name: 4 for name in FORWARD_KERNELS}
+    _per_call_launches(rec["train"], "depth train", train_k, DEPTH["steps"])
+    _per_call_launches(rec["val"], "depth val", val_k, 1)
+    _per_call_launches(grec["val"], "depth gate val", val_k, dg.BATCHES)
+    train_lines = [m for m in lines if "loss" in m]
+    check([m["step"] for m in train_lines] == list(range(1, DEPTH["steps"]
+                                                        + 1)),
+          f"depth metrics lines {[m.get('step') for m in lines]}")
+    check(all(math.isfinite(m[k]) for m in train_lines
+              for k in ("loss", "grad_norm")), "non-finite depth loss")
+    check({"metrics.jsonl", "best", "params_final.npz",
+           str(DEPTH["steps"])} <= set(files), f"train-depth wrote {files}")
+    check(best_steps == [str(DEPTH["steps"])], f"best/ holds {best_steps}")
+    check(cli.returncode == 0,
+          f"cli train-depth failed:\n{cli.stderr[-3000:]}")
+    cli_lines = [json.loads(ln) for ln in cli.stdout.splitlines()
+                 if ln.startswith("{")]
+    check([m["step"] for m in cli_lines] == [1, 2],
+          f"cli train-depth printed {cli.stdout[-2000:]}")
+    train_ms = [t for t, _ in rec["train"]]
+    ms_step = sum(train_ms[1:]) / len(train_ms[1:])
+    log("depth_train", config="train-depth recipe (640x640 padded, 480x640 "
+        "content, f32, batch 4, K1-K5, depth_pad 640)",
+        steps=DEPTH["steps"], train_step_ms=[f"{x:.1f}" for x in train_ms],
+        ms_per_step_after_first=f"{ms_step:.1f}",
+        images_per_s=f"{2 * DEPTH['batch'] * 1e3 / ms_step:.2f}",
+        peak_allocated_gib=f"{peak_gib:.2f}",
+        val_step_ms=[f"{t:.1f}" for t, _ in rec["val"]],
+        pose_ms=[f"{p[0]:.1f}" for p in rec["pose"]],
+        launches_per_train_step=rec["train"][0][1],
+        launches_per_val_step=rec["val"][0][1],
+        # each step's wall clock in the loop (from its imgs_per_s, pairs a
+        # second), the batch's reading and decoding included
+        loop_s_per_step=[round(DEPTH["batch"] / m["imgs_per_s"], 3)
+                         for m in train_lines],
+        loss=[round(m["loss"], 4) for m in train_lines],
+        num_matches=[m["num_matches"] for m in train_lines],
+        val=[{k: round(v, 4) for k, v in m.items()} for m in lines
+             if "auc@10" in m], files=files, best=best_steps,
+        cli_s=f"{cli_s:.1f}", cli_steps=[m["step"] for m in cli_lines])
+
+    aucs = [agg[k] for k in dg.AUCS]
+    pose = grec["pose"]
+    log("depth_gate", checkpoint="tpu_r5_depth2", pairs=dg.BATCHES * dg.BATCH,
+        auc=[round(a, 4) for a in aucs],
+        cpu_reference=[round(dg.CPU_REF[k], 4) for k in dg.AUCS],
+        delta=[round(agg[k] - dg.CPU_REF[k], 4) for k in dg.AUCS],
+        tol=dg.GATE_TOL,
+        jax_record=[round(dg.JAX_RECORD[k], 3) for k in dg.AUCS],
+        delta_jax_record=[round(agg[k] - dg.JAX_RECORD[k], 4)
+                          for k in dg.AUCS],
+        prec=agg["prec@5e-04"], val_num_matches=agg["val_num_matches"],
+        val_loss=round(agg["val_loss"], 4),
+        failed_fits=sum(p[2] for p in pose),
+        val_step_ms=[f"{t:.1f}" for t, _ in grec["val"]],
+        pose_ms_per_batch=[f"{p[0]:.1f}" for p in pose],
+        pose_host_syncs_per_batch=[p[1] for p in pose],
+        launches=gate_launches)
+    check(dg.gate(agg), f"depth gate: pose AUC {aucs} against the CPU "
+          f"reference {dg.CPU_REF} (tol {dg.GATE_TOL}), prec@5e-04 "
+          f"{agg['prec@5e-04']}, {agg['val_num_matches']} matches a pair")
+
+    # K1 and K2 at the depth grid on the gate's first val step's inputs
+    q, k, v, centers, grid = kept["box_window_attention_fwd"][0][:5]
+    _k1_vs_plain(gk, q, k, v, centers, grid, "depth_kernels",
+                 inputs="gate val step 0, cross layer 0")
+    q, k, v, mask = kept["masked_kv_attention_fwd"][0][:4]
+    _mka_fwd_case(gk, q, k, v, mask, "depth gate val step 0, self layer 0")
+    del kept
+    _depth_live_step(gk, device, gate_state, vb[0])
+    del gate_state, vb
+    torch.cuda.empty_cache()
+
+
+def _depth_live_step(gk, device, state, batch):
+    """One depth train step of the trained checkpoint on a val batch, where
+    RANSAC finds homographies and the cross layers' gradients pass through
+    K4/K5 (phase 5's live-GAM checks); then K3, K4 and K5 against their
+    plain backwards at phase 4's bars on the forward inputs of its first
+    self and cross layer in both directions, the 80x80 grid with its
+    padded rows, and a fixed gradient."""
+    from geoformer_tpu_torch.config import TrainConfig
+    from geoformer_tpu_torch.eval import depth_gate as dg
+    from geoformer_tpu_torch.train import depth_loop
+
+    step_fn = depth_loop.make_depth_train_step(TrainConfig(
+        batch_size=dg.BATCH, image_hw=(dg.IMSIZE, dg.IMSIZE)))
+    geo = []
+    hook = state.model.geo_module.register_forward_hook(
+        lambda mod, inp, out: geo.append(out[2]))
+    gk.reset_launch_counts()
+    with _keep_inputs(gk, "box_window_attention_fwd",
+                      "masked_kv_attention_fwd") as kept:
+        t0 = time.perf_counter()
+        live = step_fn(state, batch, 1e-5,
+                       generator=torch.Generator(device).manual_seed(5))
+        torch.cuda.synchronize()
+        live_ms = (time.perf_counter() - t0) * 1e3
+    hook.remove()
+    launches = dict(gk.LAUNCHES)
+    cross = state.model.geo_module.layer_1
+    cross_grad = {n_: getattr(cross, n_).weight.grad.norm().item()
+                  for n_ in ("q_proj", "k_proj", "v_proj")}
+    has_h = geo[0].has_H.tolist()
+    log("depth_live_gam", checkpoint="tpu_r5_depth2", step_ms=f"{live_ms:.1f}",
+        has_H=has_h, num_inliers=geo[0].num_inliers.tolist(),
+        num_matches=float(live["num_matches"]), loss=float(live["loss"]),
+        grad_norm=float(live["grad_norm"]), launches=launches,
+        cross_layer_grad_norms={k: f"{x:.3e}" for k, x in cross_grad.items()})
+    check(any(has_h), "the depth train step found no homography")
+    check(all(math.isfinite(float(live[k])) for k in ("loss", "grad_norm")),
+          "non-finite depth train step on the trained checkpoint")
+    check(all(x > 0 for x in cross_grad.values()),
+          "the cross layers got no gradient through K4/K5 on the depth path")
+    for name, count in launches.items():
+        check(count == 4, f"{name} launched {count} times in the depth train "
+              "step on the trained checkpoint, expected 4")
+
+    gen = torch.Generator(device).manual_seed(14)
+    for i in range(2):
+        q, k, v, mask = (x.detach() for x in
+                         kept["masked_kv_attention_fwd"][i][:4])
+        g = torch.randn(q.shape, generator=gen, device=device)
+        _mka_bwd_case(gk, q, k, v, mask, g,
+                      f"depth train step, self layer 0, call {i}")
+        q, k, v, centers = (x.detach() for x in
+                            kept["box_window_attention_fwd"][i][:4])
+        grid = tuple(kept["box_window_attention_fwd"][i][4])
+        g = torch.randn(q.shape, generator=gen, device=device)
+        what = f"depth train step, cross layer 0, call {i}"
+        _box_dkv_case(gk, q, k, v, g, centers, what, grid)
+        _box_dq_case(gk, q, k, v, g, centers, what, grid)
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -2607,6 +2916,7 @@ def main() -> int:
     timed("training_loop", phase_training_loop, device, ms_step)
     timed("fire_isc", phase_fire_isc, device)
     timed("released", phase_released, device)
+    timed("depth", phase_depth, device)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

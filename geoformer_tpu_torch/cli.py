@@ -1,10 +1,14 @@
-"""Command line of the port: train, infer, eval, parity and export.
+"""Command line of the port: train, train-depth, infer, eval, parity, export.
 
 Counterpart of the same subcommands of geoformer_tpu/cli.py, with its flags
 and defaults, plus ``--device`` (default ``cuda``):
 
     python -m geoformer_tpu_torch.cli train --pallas --batch 4 --out ckpt \\
         [--steps 12000] [--val-every 500 --tensorboard] [--resume]
+    python -m geoformer_tpu_torch.cli train-depth --npz-dir <c>/index \
+        --root <c> --val-npz-dir <c>/index_val --depth-pad 640 --pallas \
+        --batch 4 --out ckpt_depth    (<c>: python -m
+        geoformer_tpu_torch.data.depth_corpus --cluttered --out <c>)
     python -m geoformer_tpu_torch.cli infer img0.png img1.png \\
         --ckpt checkpoints/tpu_r3_main/params_final.npz [--out m.npy] \\
         [--draw m.png] [--draw-geo g.png]
@@ -118,6 +122,42 @@ def cmd_train(args):
         sensor_aug=args.sensor_aug,
         bank_size=args.bank_size,
         bank_refresh=args.bank_refresh,
+        device=args.device,
+    )
+
+
+def cmd_train_depth(args):
+    from geoformer_tpu_torch.config import (
+        GeoFormerConfig,
+        GeoModuleConfig,
+        MatchConfig,
+    )
+    from geoformer_tpu_torch.train.depth_loop import run_depth_training
+
+    model_cfg = GeoFormerConfig(
+        match=MatchConfig(max_matches=args.max_matches, force_one_match=True),
+        geo=GeoModuleConfig(ransac_iters=args.gam_ransac_iters,
+                            max_inliers=args.gam_max_inliers,
+                            use_pallas=args.pallas),
+        use_bf16=args.bf16,
+    )
+    run_depth_training(
+        npz_dir=args.npz_dir,
+        root_dir=args.root,
+        val_npz_dir=args.val_npz_dir,
+        steps=args.steps,
+        batch_size=args.batch,
+        image_hw=(args.imsize, args.imsize),
+        ckpt_dir=args.out,
+        log_every=args.log_every,
+        val_every=args.val_every,
+        n_val_batches=args.n_val_batches,
+        seed=args.seed,
+        model_cfg=model_cfg,
+        lr=args.lr,
+        resume=args.resume,
+        min_overlap_score=args.min_overlap,
+        depth_pad=args.depth_pad,
         device=args.device,
     )
 
@@ -310,6 +350,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the hand-written GAM kernels (K1-K5)")
     t.add_argument("--device", default="cuda")
     t.set_defaults(fn=cmd_train)
+
+    td = sub.add_parser("train-depth",
+                        help="depth-supervised (MegaDepth/ScanNet) training")
+    td.add_argument("--npz-dir", required=True, help="train scene npz dir")
+    td.add_argument("--root", required=True, help="dataset root dir")
+    td.add_argument("--val-npz-dir", default=None, help="val scene npz dir")
+    td.add_argument("--steps", type=int, default=1000)
+    td.add_argument("--batch", type=int, default=2)
+    td.add_argument("--imsize", type=int, default=640,
+                    help="square pad size (MegaDepth protocol)")
+    td.add_argument("--out", default="checkpoints_depth")
+    td.add_argument("--log-every", type=int, default=50)
+    td.add_argument("--val-every", type=int, default=500)
+    td.add_argument("--n-val-batches", type=int, default=8)
+    td.add_argument("--seed", type=int, default=66)
+    td.add_argument("--max-matches", type=int, default=512)
+    td.add_argument("--gam-ransac-iters", type=int, default=256)
+    td.add_argument("--gam-max-inliers", type=int, default=512)
+    td.add_argument("--lr", type=float, default=0.0)
+    td.add_argument("--resume", action="store_true")
+    td.add_argument("--min-overlap", type=float, default=0.4)
+    td.add_argument("--depth-pad", type=int, default=2000)
+    td.add_argument("--bf16", action="store_true",
+                    help="bf16 compute path (params stay f32)")
+    td.add_argument("--pallas", action="store_true",
+                    help="the hand-written GAM kernels (K1-K5)")
+    td.add_argument("--device", default="cuda")
+    td.set_defaults(fn=cmd_train_depth)
 
     e = sub.add_parser("eval")
     e.add_argument("benchmark", choices=list(_EVAL_PROTOCOLS))

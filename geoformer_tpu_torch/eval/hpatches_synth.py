@@ -107,10 +107,13 @@ def write_ppm(path: str, rgb: np.ndarray) -> None:
 
 
 def warp_perspective(img: np.ndarray, H: np.ndarray,
-                     out_hw: Sequence[int]) -> np.ndarray:
-    """cv2.warpPerspective(img, H, (w_out, h_out)) of a float32 image onto
-    an output of its own size: dst(p) = src(H^-1 p) with H^-1 in float64,
-    bilinear taps in float32, zeros outside. At the source's size it
+                     out_hw: Sequence[int], border: float = 0.0
+                     ) -> np.ndarray:
+    """cv2.warpPerspective(img, H, (w_out, h_out), INTER_LINEAR,
+    borderValue=border) of a float32 image onto an output of its own size:
+    dst(p) = src(H^-1 p) with H^-1 in float64, bilinear taps in float32, a
+    tap outside the source reading ``border`` and a position off it by a
+    pixel or more giving ``border``. At the source's size and border 0 it
     follows data/native.native_warp's arithmetic (cpp/synthgen.cpp
     warp_one)."""
     src = np.asarray(img, np.float32)
@@ -132,6 +135,7 @@ def warp_perspective(img: np.ndarray, H: np.ndarray,
     fy = (sy - y0).astype(np.float32)
     x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
     one = np.float32(1)
+    fill = np.float32(border)
     acc = np.zeros((ho, wo), np.float32)
     for dx, dy, wgt in ((0, 0, (one - fx) * (one - fy)),
                         (1, 0, fx * (one - fy)),
@@ -140,7 +144,10 @@ def warp_perspective(img: np.ndarray, H: np.ndarray,
         xi, yi = x0 + dx, y0 + dy
         ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
         tap = src[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)]
-        acc += np.where(ok, wgt * tap, np.float32(0))
+        acc += wgt * np.where(ok, tap, fill)
+    if border:
+        off = (x0 >= w) | (x0 + 1 < 0) | (y0 >= h) | (y0 + 1 < 0)
+        acc = np.where(off, fill, acc)
     return acc
 
 

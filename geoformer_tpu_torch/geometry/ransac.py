@@ -74,9 +74,10 @@ def _reproj_err2(H, pts0, pts1) -> torch.Tensor:
 
 def gumbel_sample_idx(valid: torch.Tensor, iters: int,
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, iters, 4] minimal samples: Gumbel top-4 over the valid entries,
-    from uniforms in [0, 1) drawn from ``generator`` or given as ``noise``
+                      noise: Optional[torch.Tensor] = None,
+                      k: int = 4) -> torch.Tensor:
+    """[B, iters, k] samples: Gumbel top-k over the valid entries, from
+    uniforms in [0, 1) drawn from ``generator`` or given as ``noise``
     [B, iters, N]."""
     b, n = valid.shape
     if noise is None:
@@ -89,7 +90,7 @@ def gumbel_sample_idx(valid: torch.Tensor, iters: int,
         u = noise
     g = -torch.log(-torch.log(u.clamp(min=1e-20)))
     g = torch.where(valid[:, None, :], g, torch.full_like(g, float("-inf")))
-    return torch.topk(g, 4, dim=-1).indices
+    return torch.topk(g, k, dim=-1).indices
 
 
 def ransac_homography(pts0, pts1, valid, thr: float = 3.0, iters: int = 512,

@@ -1,9 +1,9 @@
 """The port stands alone: torch, numpy and the standard library only.
 
 Neither geoformer_tpu_torch nor chip_smoke.py may import JAX, flax, the JAX
-package, cv2, PIL or matplotlib (the card's machine has none of them), and
-chip_smoke.py must fail, printing no result, where there is no CUDA device
-or no port.
+package, cv2, h5py, PIL or matplotlib (the card's machine has none of
+them), and chip_smoke.py must fail, printing no result, where there is no
+CUDA device or no port.
 """
 
 import ast
@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "geoformer_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "geoformer_tpu",
-             "cv2", "PIL", "kornia", "matplotlib"}
+             "cv2", "PIL", "kornia", "matplotlib", "h5py"}
 ALLOWED = {"torch", "numpy", "geoformer_tpu_torch"}
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 OK_LINE = '{"ok": true'
@@ -64,10 +64,11 @@ def test_every_port_module_imports_without_jax():
 
 
 def test_chip_smoke_reads_no_data_file():
-    """No data file of the repository but the trained checkpoint, which
+    """No data file of the repository but the trained checkpoints, which
     phase 8 reads through the port's loader (and, with it, the held-out
-    photographs through the port's self-check); the files phase 7 decodes
-    it writes itself."""
+    photographs through the port's self-check) and phase 12 through
+    eval/depth_gate.py; the files phases 7 and 12 decode they write
+    themselves."""
     src = (ROOT / "chip_smoke.py").read_text()
     for word in ("imread", "open(", ".jpg", "torch.load", "load_npz",
                  "holdout"):

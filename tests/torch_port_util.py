@@ -89,12 +89,13 @@ def assert_close(actual, expected, rtol: float, atol: float, what=""):
 
 
 def jax_forward_and_draws(cfg, variables, img0, img1, key, mask0=None,
-                          mask1=None):
+                          mask1=None, train: bool = False):
     """The JAX GeoFormer.apply output of a batch and the GAM's RANSAC
     samples [B, iters, 4] that this forward drew (the key it takes with
     make_rng("ransac"), split per row as _build_geo_state splits it, then
     ransac.py:110-112 on the first-pass matches), for injection into the
-    port."""
+    port. ``train`` runs the train-mode forward (batch statistics, the
+    force-one-match rule), as a train step does."""
     import jax
     import jax.numpy as jnp
 
@@ -104,16 +105,19 @@ def jax_forward_and_draws(cfg, variables, img0, img1, key, mask0=None,
     model = JGeoFormer(cfg)
     m = (None, None) if mask0 is None else (jnp.asarray(mask0),
                                             jnp.asarray(mask1))
+    mutable = ["intermediates"] + (["batch_stats"] if train else [])
     out, st = jax.jit(lambda v, a, b, k, m0, m1: model.apply(
-        v, a, b, m0, m1, rngs={"ransac": k}, capture_intermediates=True,
-        mutable=["intermediates"]))(variables, jnp.asarray(img0),
-                                    jnp.asarray(img1), key, *m)
+        v, a, b, m0, m1, train=train, rngs={"ransac": k},
+        capture_intermediates=True, mutable=mutable))(
+            variables, jnp.asarray(img0), jnp.asarray(img1), key, *m)
     b = img0.shape[0]
     f0, f1 = st["intermediates"]["loftr_coarse"]["__call__"][0]
     flat_m = [None if x is None else x.reshape(b, -1) for x in m]
     matches1 = coarse_match(f0, f1, cfg.match.thr,
                             cfg.match.dsmax_temperature,
-                            cfg.match.max_matches, *flat_m, streaming=True)
+                            cfg.match.max_matches, *flat_m,
+                            force_one=cfg.match.force_one_match or train,
+                            streaming=True)
     rkey = model.apply(variables, method=lambda mod: mod.make_rng("ransac"),
                        rngs={"ransac": key})
     iters = cfg.geo.ransac_iters
@@ -251,3 +255,65 @@ class JaxDrawsMatcher:
                 len(p0), 0), **kw)
 
         monkeypatch.setattr(module, "fit_homography_np", fit)
+
+
+def depth_batch(seed: int, b: int = 2, hw=(64, 64), rows: int = 48,
+                scale: float = 1.25, shift: int = 8, pad: int = 96,
+                rendered: bool = False):
+    """A padded posed-RGBD batch, numpy, in the depth steps' layout.
+
+    Images: a smooth texture and its copy shifted by ``shift`` pixels
+    (tests/torch_port_util.smooth_images), ``rows`` rows of content
+    zero-padded to ``hw``, with coarse masks zero below the content. Depth,
+    poses and intrinsics: two views of a rendered room (the port's
+    renderer) at the original size, the content's times ``scale``, depths
+    zero-padded to pad x pad, the second camera moved sideways;
+    scale0/scale1 = ``scale``. With ``rendered`` the images are the two
+    views' renders instead, resized to the content as the reader resizes
+    (ops/resize.resize_linear_u8 of the 8-bit render)."""
+    from geoformer_tpu_torch.data.planes import (
+        look_at,
+        render_planes,
+        room_scene,
+    )
+    from geoformer_tpu_torch.ops.resize import resize_linear_u8
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    img0, img1 = smooth_images(rng, b, rows, w, shift)
+    img0 = np.pad(img0, ((0, 0), (0, h - rows), (0, 0), (0, 0)))
+    img1 = np.pad(img1, ((0, 0), (0, h - rows), (0, 0), (0, 0)))
+    mask = np.zeros((b, h // 8, w // 8), np.float32)
+    mask[:, :rows // 8] = 1.0
+    oh, ow = int(rows * scale), int(w * scale)
+    f = 0.9 * ow
+    K = np.array([[f, 0, ow / 2], [0, f, oh / 2], [0, 0, 1]])
+    d0s, d1s, Ts, ims = [], [], [], []
+    for _ in range(b):
+        planes = room_scene(rng, rng.random((6, 32, 48)).astype(np.float32),
+                            cluttered=True)
+        c0 = np.array([rng.uniform(-.5, .5), rng.uniform(-.2, .2), 0.0])
+        c1 = c0 + np.array([rng.uniform(.3, .5), rng.uniform(-.1, .1),
+                            rng.uniform(-.2, .2)])
+        T0 = look_at(c0, [0, 0, 8])
+        T1 = look_at(c1, [rng.uniform(-.3, .3), 0, 8])
+        i0, d0 = render_planes(K, T0, planes, (oh, ow), return_depth=True)
+        i1, d1 = render_planes(K, T1, planes, (oh, ow), return_depth=True)
+        ims.append([resize_linear_u8((i * 255).astype(np.uint8), (rows, w))
+                    .astype(np.float32) / 255.0 for i in (i0, i1)])
+        d0s.append(np.pad(d0, ((0, pad - oh), (0, pad - ow))))
+        d1s.append(np.pad(d1, ((0, pad - oh), (0, pad - ow))))
+        Ts.append(T1 @ np.linalg.inv(T0))
+    if rendered:
+        img0 = np.zeros_like(img0)
+        img1 = np.zeros_like(img1)
+        for i, (a, c) in enumerate(ims):
+            img0[i, :rows, :, 0] = a
+            img1[i, :rows, :, 0] = c
+    T = np.stack(Ts).astype(np.float32)
+    Kb = np.tile(K.astype(np.float32), (b, 1, 1))
+    sc = np.full((b, 2), scale, np.float32)
+    return {"image0": img0, "image1": img1, "mask0": mask, "mask1": mask,
+            "depth0": np.stack(d0s), "depth1": np.stack(d1s),
+            "T_0to1": T, "T_1to0": np.linalg.inv(T).astype(np.float32),
+            "K0": Kb, "K1": Kb.copy(), "scale0": sc, "scale1": sc.copy()}
