@@ -112,7 +112,22 @@ Phases, each printing its own lines and its seconds:
    their plain versions; one depth train step of the trained checkpoint
    on a val batch, where RANSAC finds homographies and the cross layers
    get gradients through K4/K5; and K3, K4 and K5 against their plain
-   backwards on that step's inputs (the 80x80 grid, 20 rows padded).
+   backwards on that step's inputs (the 80x80 grid, 20 rows padded);
+13. localization and SLAM: when the trained checkpoint is there, the
+   standing ATE gate (eval/ate_protocol.py: 12 frames of 480x640, loop
+   stride 5, `cli slam`, optimized corner drift <= 3.0 px) and the
+   localization gate (eval/localize_protocol.py: the 3-plane scene, 8 db
+   and 4 query images at 480x640, `cli localize` in the SfM mode and, on
+   the same scene with the db images' depth scans, the dense mode;
+   recall@(5 m, 10 deg) = 1.0 in each), the three commands in their own
+   processes at once in bf16 through K1 and K2, each record beside the
+   JAX record and the port's CPU run; then the planar SLAM and the SfM
+   localization driver in this process on the same files: K1 and K2 at 4
+   launches a forward (K3-K5 none), the ms of decoding, forward, fit,
+   graph solve and PnP, the host syncs of each fit, graph solve and PnP
+   query, the card's PnP (each query, the same injected samples) and
+   SL(3) graph solve against the same calls on the host's CPU, and K1 and
+   K2 against their plain versions on one localization pair's inputs.
 
 K1, K4 and K5 (a plan and then the pieces, several launches a call) and
 K2 (and SDPA beside it) are timed on the device by CUDA-graph replay
@@ -125,8 +140,9 @@ Phases 1-7 read no data file: weights come from a seed and images from
 numpy (phase 7 decodes only files it wrote). Phase 8 reads the trained
 checkpoint and the held-out photographs through the port's own loaders,
 phase 9 the checkpoint; phase 9 writes only under a temporary directory,
-as phases 10-12 do (their corpora, checkpoint, figures and bundle are
-made there and read back). Phase 12 reads checkpoints/tpu_r5_depth2.
+as phases 10-13 do (their corpora, checkpoint, figures, bundle, scene
+and sequence are made there and read back). Phase 12 reads
+checkpoints/tpu_r5_depth2.
 It needs only the standard library, torch and numpy. Any failure
 raises, so the exit code is nonzero; with no CUDA device it stops in
 phase 1. The last line of a successful run is one JSON object naming the
@@ -2868,6 +2884,350 @@ def _depth_live_step(gk, device, state, batch):
         _box_dq_case(gk, q, k, v, g, centers, what, grid)
 
 
+# ------------------------------------------------------------ phase 13 -----
+
+# The standing localization and ATE gates (eval/localize_protocol.py,
+# eval/ate_protocol.py) at their full size: the 3-plane scene of 8 db and
+# 4 query images at 480x640 (with the db scans for the dense mode), and 12
+# frames of 480x640 with loop stride 5, all from seed 20260819.
+LOC_PHASE = dict(seed=20260819, n_db=8, n_query=4)
+ATE_PHASE = dict(seed=20260819, frames=12, loop_stride=5, hw=(480, 640))
+# card against the host's CPU on the same inputs and draws: the f32 PnP
+# and SL(3) bars of tests/test_torch_port_{sfm_localize,slam}.py (two
+# BLAS/LAPACK stacks in f32: the DLT refit's normal matrix is
+# ill-conditioned, the graph's 8 squarings compound the rounding)
+PNP_BAR = dict(rot_deg=0.1, centre_m=0.02, inliers=2)
+GRAPH_BAR_PX = 1e-2
+
+
+def _synced(fn, *args, **kwargs):
+    """(fn's result, its ms up to a synchronize, the host synchronisations
+    torch's sync debug mode reported within it, their count by the source
+    line that made them)."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ms = (time.perf_counter() - t0) * 1e3
+    where = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, ms, sum(where.values()), where
+
+
+def _pose_gap(Ta, Tb):
+    """(rotation angle in degrees, camera-centre distance) of two
+    world->cam 4x4 poses; the angle from |Ra - Rb|_F, exact when small."""
+    Ra, Rb = Ta[:3, :3], Tb[:3, :3]
+    ang = math.degrees(2 * math.asin(min(1.0, float(
+        np.linalg.norm(Ra - Rb)) / (2 * math.sqrt(2)))))
+    return ang, float(np.linalg.norm(Ra.T @ Ta[:3, 3] - Rb.T @ Tb[:3, 3]))
+
+
+def _phase13_gates(tmp, device):
+    """The three protocol commands, each in its own process and all at
+    once: `cli slam` on the ATE sequence and `cli localize` on the scene in
+    the SfM and the dense mode (bf16, K1 and K2). Returns the records, the
+    sequence's directory and the scene's."""
+    import concurrent.futures
+
+    from geoformer_tpu_torch.eval import ate_protocol as ap
+    from geoformer_tpu_torch.eval import localize_protocol as lp
+
+    seq, scene = tmp / "seq", tmp / "scene"
+    t0 = time.perf_counter()
+    ap.build_sequence(str(seq), ATE_PHASE["frames"], ATE_PHASE["hw"],
+                      ATE_PHASE["seed"])
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cams = lp.build_scene(str(scene / "sfm"), LOC_PHASE["seed"],
+                          LOC_PHASE["n_db"], LOC_PHASE["n_query"],
+                          scans=True)
+    scene_s = time.perf_counter() - t0
+    # the dense mode on the same scene, with its own output directory
+    (scene / "dense").mkdir()
+    for name in ("images", "scans", "queries.txt", "query_pairs.txt"):
+        (scene / "dense" / name).symlink_to(scene / "sfm" / name)
+    cmds = {
+        "slam": ap.slam_command(str(seq), str(CKPT), max(ATE_PHASE["hw"]),
+                                ATE_PHASE["loop_stride"], str(device),
+                                bf16=True, pallas=True),
+        "localize_sfm": lp.localize_command(str(scene / "sfm"), str(CKPT),
+                                            str(device), True, True),
+        "localize_dense": lp.localize_command(str(scene / "dense"),
+                                              str(CKPT), str(device), True,
+                                              True, scans=True)}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        runs = dict(zip(cmds, pool.map(lambda c: subprocess.run(
+            c, cwd=REPO, capture_output=True, text=True, timeout=600),
+            cmds.values())))
+    wall = time.perf_counter() - t0
+    logs = {name: r.stdout + r.stderr for name, r in runs.items()}
+    for name, r in runs.items():
+        check(r.returncode == 0, f"{name} failed ({r.returncode}):\n"
+              f"{logs[name][-3000:]}")
+    slam = [json.loads(ln) for ln in runs["slam"].stdout.splitlines()
+            if ln.startswith("{")][-1]
+    recs = {"ate": ap.record(slam, ATE_PHASE["seed"], ATE_PHASE["frames"],
+                             ATE_PHASE["loop_stride"])}
+    for mode in ("sfm", "dense"):
+        with contextlib.redirect_stdout(sys.stderr):
+            recs[mode] = lp.score(str(scene / mode / "run" / "poses.txt"),
+                                  cams["query"], LOC_PHASE["seed"],
+                                  LOC_PHASE["n_db"], scans=mode == "dense")
+    log("localize_slam_build", ate_sequence_s=f"{seq_s:.1f}",
+        scene_s=f"{scene_s:.1f}", textures=_texture_source(),
+        processes_wall_s=f"{wall:.1f}")
+    return recs, seq, scene / "sfm"
+
+
+def _texture_source() -> str:
+    """Which build made the procedural textures: the port's g++ build of
+    cpp/synthgen.cpp, or its numpy fallback where g++ is missing."""
+    from geoformer_tpu_torch.data import native
+
+    try:
+        native.load_library()
+        return "cpp/synthgen.cpp (g++)"
+    except native.NoCompiler:
+        return "numpy fallback (no g++)"
+
+
+def phase_localize_slam(device):
+    """The localization and planar-SLAM paths on the card, when the trained
+    checkpoint is there: the standing ATE and localization gates through
+    `cli slam` and `cli localize` (SfM and dense) in their own processes,
+    each beside the JAX record and the port's CPU run; then both paths in
+    this process with K1/K2 counted a forward and held against their plain
+    versions on this path's inputs, the ms by part and the host syncs, and
+    the card's PnP and SL(3) graph solves against the same calls on the
+    host's CPU with the same draws."""
+    import shutil
+    import sqlite3
+    import tempfile
+
+    from geoformer_tpu_torch import cli
+    from geoformer_tpu_torch.engine import pnp, slam
+    from geoformer_tpu_torch.eval import ate_protocol as ap
+    from geoformer_tpu_torch.eval import localize_driver as ld
+    from geoformer_tpu_torch.eval import localize_protocol as lp
+    from geoformer_tpu_torch.eval import sfm_localize as sl
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher, load_gray
+    from geoformer_tpu_torch.geometry.homography import corner_error
+    from geoformer_tpu_torch.geometry.ransac import gumbel_sample_idx
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    if not CKPT.is_file():
+        print(f"[localize_slam] absent path={CKPT}", flush=True)
+        return
+    log("localize_slam", sqlite3=sqlite3.sqlite_version)
+    tmp = Path(tempfile.mkdtemp(prefix="loc_slam_smoke_"))
+    try:
+        recs, seq, scene = _phase13_gates(tmp, device)
+        for name, rec, ref, jax_rec in (
+                ("ate", recs["ate"], ap.CPU_REF, ap.JAX_RECORD),
+                ("localize_sfm", recs["sfm"], lp.CPU_REF["sfm"],
+                 lp.JAX_RECORD),
+                ("localize_dense", recs["dense"], lp.CPU_REF["dense"],
+                 None)):
+            log("localize_slam_gate", gate=name, record=json.dumps(rec),
+                cpu_reference=json.dumps(ref),
+                jax_record=json.dumps(jax_rec))
+        check(recs["ate"]["pass"], f"ATE gate: optimized drift "
+              f"{recs['ate']['corner_drift_optimized_px']} px > "
+              f"{ap.REGRESSION_GATE_PX}")
+        for mode in ("sfm", "dense"):
+            check(lp.passed(recs[mode]), f"localization gate ({mode}): "
+                  f"recall@5m,10deg {recs[mode]['recall@5m,10deg']}")
+
+        # both paths in this process, instrumented
+        args = cli.build_parser().parse_args(
+            ["slam", "--images", str(seq), "--ckpt", str(CKPT), "--bf16",
+             "--pallas", "--device", str(device)])
+        cfg, model = cli._model(args)
+        matcher = BatchedMatcher(cfg, model, batch_size=1, device=device)
+        parts = {"decode": [], "forward": []}
+
+        def decode(path, imsize):
+            t0 = time.perf_counter()
+            out = load_gray(path, imsize)
+            parts["decode"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def forward(a, b):
+            t0 = time.perf_counter()
+            (mk0, mk1, _), = matcher.match_batch([a], [b])
+            parts["forward"].append((time.perf_counter() - t0) * 1e3)
+            return mk0, mk1
+
+        frames = [decode(str(p), 640)[0]
+                  for p in sorted(seq.glob("frame_*.png"))]
+        fits, graphs = [], []
+        real_fit, real_graph = slam.fit_homography_np, \
+            slam.optimize_homography_graph
+
+        def fit(*a, **kw):
+            out, ms, syncs, _ = _synced(real_fit, *a, **kw)
+            fits.append((ms, syncs))
+            return out
+
+        def graph(g, **kw):
+            out, ms, syncs, where = _synced(real_graph, g, **kw)
+            graphs.append((g, kw, out[0], ms, syncs, where))
+            return out
+
+        slam.fit_homography_np, slam.optimize_homography_graph = fit, graph
+        gk.reset_launch_counts()
+        try:
+            with _count_forwards() as fw:
+                res = slam.run_planar_slam(
+                    frames, lambda i, j: forward(frames[i], frames[j]),
+                    loop_stride=ATE_PHASE["loop_stride"], device=device,
+                    log=lambda *a: None)
+        finally:
+            slam.fit_homography_np, slam.optimize_homography_graph = \
+                real_fit, real_graph
+        slam_launches = dict(gk.LAUNCHES)
+        _forward_launches(slam_launches, len(fw), "slam")
+        hw = frames[0].shape
+        drift = slam.trajectory_drift(res["H_traj"], np.load(
+            seq / "gt.npz")["H"], hw)
+        g, kw, H_card, graph_ms, graph_syncs, graph_where = graphs[0]
+        # the same solve again, warm
+        _, graph_ms2, _, _ = _synced(real_graph, g, **kw)
+        cpu_graph = type(g)(*(x.cpu() for x in g))
+        H_cpu = real_graph(cpu_graph, **kw)[0]
+        gap_px = float(corner_error(H_card.cpu(), H_cpu, hw).max())
+        log("localize_slam_ate", frames=len(frames), forwards=len(fw),
+            launches=slam_launches, edges_ok=sum(e["ok"]
+                                                 for e in res["edges"]),
+            drift_px=f"{drift:.3f}",
+            subprocess_drift_px=recs["ate"]["corner_drift_optimized_px"],
+            decode_ms_per_frame=f"{np.median(parts['decode']):.1f}",
+            forward_ms_first=f"{parts['forward'][0]:.1f}",
+            forward_ms_median=f"{np.median(parts['forward']):.1f}",
+            fit_ms_median=f"{np.median([f[0] for f in fits]):.1f}",
+            fit_host_syncs=sorted({f[1] for f in fits}),
+            graph_solve_ms=f"{graph_ms:.1f}",
+            graph_solve_ms_again=f"{graph_ms2:.1f}",
+            graph_host_syncs=graph_syncs,
+            graph_syncs_by_line=dict(graph_where.most_common(8)),
+            graph_edges=int(g.edge_i.numel()),
+            graph_card_vs_cpu_corner_px=f"{gap_px:.2e}",
+            graph_bar_px=GRAPH_BAR_PX)
+        check(gap_px <= GRAPH_BAR_PX, f"SL(3) graph: card vs CPU "
+              f"{gap_px} px > {GRAPH_BAR_PX}")
+
+        # the localization driver (SfM mode) in this process
+        parts["decode"].clear()
+        parts["forward"].clear()
+        images = scene / "images"
+
+        def match_pairs_fn(n0, n1):
+            im0, sc0 = decode(str(images / n0), 480)
+            im1, sc1 = decode(str(images / n1), 480)
+            mk0, mk1 = forward(im0, im1)
+            return np.concatenate([mk0 * np.array(sc0),
+                                   mk1 * np.array(sc1)], axis=1)
+
+        pnp_calls = []
+        real_pose = sl.pnp_pose
+
+        def pose(*a, **kw):
+            out, ms, syncs, where = _synced(real_pose, *a, **kw)
+            pnp_calls.append((a, ms, syncs, where))
+            return out
+
+        sl.pnp_pose = pose
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with _count_forwards() as fw, \
+                    contextlib.redirect_stdout(sys.stderr):
+                poses = ld.run_localization(
+                    str(scene / "model.nvm"), str(scene / "db.db"),
+                    str(tmp / "inproc"), match_pairs_fn,
+                    sl.parse_queries_with_intrinsics(
+                        str(scene / "queries.txt")),
+                    ld.load_pairs_txt(str(scene / "query_pairs.txt")),
+                    covis_topk=3, device=device)
+        finally:
+            sl.pnp_pose = real_pose
+        loc_s = time.perf_counter() - t0
+        loc_launches = dict(gk.LAUNCHES)
+        _forward_launches(loc_launches, len(fw), "localize")
+        # each query's PnP on the card and on the CPU, the same samples
+        gaps = []
+        for (uvs, xyzs, K, capacity, thr, *_), *_ in pnp_calls:
+            n = min(len(uvs), capacity)
+            uv = np.zeros((capacity, 2), np.float32)
+            xyz = np.zeros((capacity, 3), np.float32)
+            uv[:n], xyz[:n] = np.asarray(uvs)[:n], np.asarray(xyzs)[:n]
+            valid = torch.arange(capacity) < n
+            idx = gumbel_sample_idx(valid[None], 256,
+                                    torch.Generator().manual_seed(7), k=6)[0]
+            outs = [pnp.pnp_ransac(
+                torch.from_numpy(xyz).to(d), torch.from_numpy(uv).to(d),
+                torch.tensor(K, dtype=torch.float32, device=d),
+                valid.to(d), thr_px=thr, sample_idx=idx.to(d))
+                for d in (device, torch.device("cpu"))]
+            a, b = ({k: v.cpu().numpy() for k, v in o.items()} for o in outs)
+            ang, dc = _pose_gap(a["T"].astype(np.float64),
+                                b["T"].astype(np.float64))
+            gaps.append((bool(a["ok"]), bool(b["ok"]),
+                         int(a["num_inliers"]), int(b["num_inliers"]),
+                         ang, dc))
+        log("localize_slam_localize", queries=len(poses), forwards=len(fw),
+            launches=loc_launches, wall_s=f"{loc_s:.1f}",
+            ok=[p["ok"] for p in poses.values()],
+            inliers=[p["num_inliers"] for p in poses.values()],
+            decode_ms_per_image=f"{np.median(parts['decode']):.1f}",
+            forward_ms_median=f"{np.median(parts['forward']):.1f}",
+            pnp_ms_per_query=[f"{c[1]:.1f}" for c in pnp_calls],
+            pnp_host_syncs_per_query=[c[2] for c in pnp_calls],
+            pnp_syncs_by_line=dict(pnp_calls[0][3].most_common(8)),
+            pnp_card_vs_cpu=[f"ok {g[0]}/{g[1]} inl {g[2]}/{g[3]} "
+                             f"{g[4]:.4f}deg {g[5]:.4f}m" for g in gaps],
+            pnp_bar=PNP_BAR)
+        for g in gaps:
+            check(g[0] == g[1] and abs(g[2] - g[3]) <= PNP_BAR["inliers"]
+                  and g[4] <= PNP_BAR["rot_deg"]
+                  and g[5] <= PNP_BAR["centre_m"],
+                  f"PnP card vs CPU off the bar {PNP_BAR}: {g}")
+        check(all(p["ok"] for p in poses.values()),
+              "a query was not localized in process")
+
+        # K1 and K2 on one forward of this path: 4 launches each, and each
+        # against its plain version on that forward's inputs
+        q0, d0 = next(iter(ld.load_pairs_txt(str(scene / "query_pairs.txt"))))
+        im0, _ = load_gray(str(images / q0), 480)
+        im1, _ = load_gray(str(images / d0), 480)
+        gk.reset_launch_counts()
+        with _keep_inputs(gk, "box_window_attention_fwd",
+                          "masked_kv_attention_fwd") as kept:
+            matcher.match_batch([im0], [im1])
+        _forward_launches(dict(gk.LAUNCHES), 1, "localization pair")
+        q, k, v, centers, grid = kept["box_window_attention_fwd"][0][:5]
+        _k1_vs_plain(gk, q, k, v, centers, grid, "localize_slam_kernels",
+                     inputs=f"{q0}-{d0} cross layer 0")
+        q, k, v, mask = kept["masked_kv_attention_fwd"][0][:4]
+        _mka_fwd_case(gk, q, k, v, mask, f"{q0}-{d0} self layer 0")
+        del kept, matcher, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -2917,6 +3277,7 @@ def main() -> int:
     timed("fire_isc", phase_fire_isc, device)
     timed("released", phase_released, device)
     timed("depth", phase_depth, device)
+    timed("localize_slam", phase_localize_slam, device)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

@@ -1,4 +1,5 @@
-"""Command line of the port: train, train-depth, infer, eval, parity, export.
+"""Command line of the port: train, train-depth, infer, eval, parity, export,
+localize, slam.
 
 Counterpart of the same subcommands of geoformer_tpu/cli.py, with its flags
 and defaults, plus ``--device`` (default ``cuda``):
@@ -18,6 +19,11 @@ and defaults, plus ``--device`` (default ``cuda``):
     python -m geoformer_tpu_torch.cli parity --hpatches <root> --ckpt ...
     python -m geoformer_tpu_torch.cli export --out matcher.gfmz --ckpt ... \\
         [--height 480 --width 640 --batch 1] [--bf16 --pallas]
+    python -m geoformer_tpu_torch.cli localize --nvm model.nvm \\
+        --database db.db --images <dir> --queries queries.txt \\
+        --query-pairs pairs.txt --out <dir> --ckpt ...   (or --scan-dir)
+    python -m geoformer_tpu_torch.cli slam --images <dir> \\
+        [--glob 'frame_*.png'] [--loop-stride 5] [--gt gt.npz] --ckpt ...
 
 Checkpoints are the JAX package's ``.npz`` files or the reference's torch
 ``.ckpt``/``.pth``/``.pt`` files; with no ``--ckpt`` the weights are random
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -285,6 +292,114 @@ def cmd_export(args):
           f"platforms={[device]}) -> {args.out}")
 
 
+def cmd_localize(args):
+    from geoformer_tpu_torch.eval.localize_driver import (
+        load_pairs_txt,
+        run_localization,
+    )
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher, load_gray
+    from geoformer_tpu_torch.eval.sfm_localize import (
+        parse_queries_with_intrinsics,
+        write_pose_file,
+    )
+
+    if not args.scan_dir and not (args.nvm and args.database):
+        raise SystemExit("localize needs either --scan-dir (dense InLoc "
+                         "mode) or both --nvm and --database (SfM mode)")
+    cfg, model = _model(args)
+    matcher = BatchedMatcher(cfg, model, batch_size=1, device=args.device)
+
+    def match_pairs_fn(n0, n1):
+        im0, sc0 = load_gray(os.path.join(args.images, n0), args.imsize)
+        im1, sc1 = load_gray(os.path.join(args.images, n1), args.imsize)
+        (mk0, mk1, _), = matcher.match_batch([im0], [im1])
+        return np.concatenate([mk0 * np.array(sc0), mk1 * np.array(sc1)],
+                              axis=1)
+
+    queries = parse_queries_with_intrinsics(args.queries)
+    query_pairs = load_pairs_txt(args.query_pairs)
+    if args.scan_dir:
+        # InLoc-style dense-depth mode: 3D from per-db-image depth scans
+        # (eval/inloc.py), no NVM or triangulation
+        from geoformer_tpu_torch.eval.inloc import (
+            load_db_scans,
+            localize_queries_dense,
+        )
+
+        db_names = sorted({n for _, n in query_pairs})
+        scans = load_db_scans(args.scan_dir, db_names)
+        qmatches = {}
+        for qn, dbn in query_pairs:
+            if dbn not in scans:
+                continue
+            qmatches.setdefault(qn, {})[dbn] = match_pairs_fn(qn, dbn)
+        poses = localize_queries_dense(queries, qmatches, scans,
+                                       ransac_thr_px=args.ransac_thr,
+                                       device=args.device)
+        os.makedirs(args.out, exist_ok=True)
+        write_pose_file(poses, os.path.join(args.out, "poses.txt"))
+    else:
+        run_localization(
+            nvm_path=args.nvm,
+            db_path=args.database,
+            out_dir=args.out,
+            match_pairs_fn=match_pairs_fn,
+            queries=queries,
+            query_pairs=query_pairs,
+            db_pairs=load_pairs_txt(args.db_pairs) if args.db_pairs else None,
+            intrinsics_txt=args.intrinsics_txt,
+            covis_topk=args.covis_topk,
+            ransac_thr_px=args.ransac_thr,
+            device=args.device,
+        )
+    print(f"poses -> {os.path.join(args.out, 'poses.txt')}")
+
+
+def cmd_slam(args):
+    import glob
+
+    from geoformer_tpu_torch.engine.slam import (
+        run_planar_slam,
+        save_trajectory,
+        trajectory_drift,
+    )
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher, load_gray
+
+    paths = sorted(glob.glob(os.path.join(args.images, args.glob)))
+    if len(paths) < 2:
+        raise SystemExit(f"need >=2 frames, found {len(paths)} "
+                         f"in {args.images}/{args.glob}")
+    frames = [load_gray(p, args.imsize)[0] for p in paths]
+    shapes = {f.shape for f in frames}
+    if len(shapes) != 1:
+        raise SystemExit(f"frames must share one shape, got {shapes}")
+
+    cfg, model = _model(args)
+    matcher = BatchedMatcher(cfg, model, batch_size=1, device=args.device)
+
+    def match_fn(i, j):
+        (mk0, mk1, _), = matcher.match_batch([frames[i]], [frames[j]])
+        return mk0, mk1
+
+    res = run_planar_slam(frames, match_fn, loop_stride=args.loop_stride,
+                          ransac_thr=args.ransac_thr, device=args.device)
+    out = {"frames": len(frames),
+           "edges_ok": sum(e["ok"] for e in res["edges"]),
+           "edges_total": len(res["edges"])}
+    if args.gt:
+        gt = np.load(args.gt)["H"] if args.gt.endswith(".npz") \
+            else np.loadtxt(args.gt)[:, 1:].reshape(-1, 3, 3)
+        hw = frames[0].shape
+        out["corner_drift_chained_px"] = round(
+            trajectory_drift(res["H_chained"], gt, hw), 3)
+        out["corner_drift_optimized_px"] = round(
+            trajectory_drift(res["H_traj"], gt, hw), 3)
+    if args.out:
+        save_trajectory(res["H_traj"], args.out)
+        out["trajectory"] = args.out
+    print(json.dumps(out))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("geoformer_tpu_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -414,6 +529,44 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--seq-shard", type=int, default=0)
     common(i)
     i.set_defaults(fn=cmd_infer)
+
+    lz = sub.add_parser("localize",
+                        help="Aachen-style visual localization end-to-end")
+    lz.add_argument("--nvm", default=None, help="reference NVM model "
+                    "(required unless --scan-dir)")
+    lz.add_argument("--database", default=None, help="COLMAP db with ids "
+                    "(required unless --scan-dir)")
+    lz.add_argument("--scan-dir", default=None,
+                    help="InLoc-style dense mode: directory of per-db-image "
+                         "npz scans (depth/K/T_w2c); replaces the NVM + "
+                         "triangulation path")
+    lz.add_argument("--images", required=True, help="image root dir")
+    lz.add_argument("--queries", required=True,
+                    help="queries_with_intrinsics.txt")
+    lz.add_argument("--query-pairs", required=True,
+                    help="txt: query db_image per line")
+    lz.add_argument("--db-pairs", default=None,
+                    help="txt of db pairs (default: covis from NVM)")
+    lz.add_argument("--intrinsics-txt", default=None,
+                    help="database_intrinsics.txt (Aachen v1)")
+    lz.add_argument("--covis-topk", type=int, default=20)
+    lz.add_argument("--ransac-thr", type=float, default=12.0)
+    lz.add_argument("--out", default="localization_out")
+    common(lz)
+    lz.set_defaults(fn=cmd_localize)
+
+    sl = sub.add_parser("slam",
+                        help="planar SLAM over an image sequence")
+    sl.add_argument("--images", required=True, help="frame directory")
+    sl.add_argument("--glob", default="*.png")
+    sl.add_argument("--loop-stride", type=int, default=0,
+                    help=">1 adds (i, i+stride) loop-closure edges")
+    sl.add_argument("--ransac-thr", type=float, default=3.0)
+    sl.add_argument("--gt", default=None,
+                    help="GT trajectory (npz with H [K,3,3], or txt)")
+    sl.add_argument("--out", default=None, help="trajectory txt output")
+    common(sl)
+    sl.set_defaults(fn=cmd_slam)
 
     ex = sub.add_parser(
         "export",

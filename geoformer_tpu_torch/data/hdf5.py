@@ -9,9 +9,9 @@ writes by default (libver 'earliest'):
 - version-1 object headers, with continuation blocks;
 - groups kept in a symbol table (v1 B-tree of symbol-table nodes and a
   local heap);
-- datasets of little-endian float32, float64, uint8 or uint16, with a
-  contiguous layout or a chunked one indexed by a v1 B-tree (any depth),
-  through the shuffle and deflate filters.
+- datasets of little-endian float32, float64, uint8, uint16 or int32,
+  with a contiguous layout or a chunked one indexed by a v1 B-tree (any
+  depth), through the shuffle and deflate filters.
 
 Anything else raises ValueError naming the feature: a user block,
 superblocks 2 and 3, version-2 object headers and the messages of
@@ -19,8 +19,11 @@ libver 'latest', groups kept in link messages or a fractal heap, compact
 layouts and other chunk indexes, other filters, big-endian or other
 datatypes. A file cut short raises ValueError too.
 
-write_dataset writes one dataset into a new file in the same format
-(contiguous, or chunked with deflate at a gzip level), which h5py reads.
+write_datasets writes datasets, in nested groups, into a new file in the
+same format (contiguous, or chunked with deflate at a gzip level), which
+h5py reads: the depth maps (write_dataset, one root dataset) and the
+localization exports (eval/localization.export_h5: float32 keypoints and
+scores, int32 matches0, one group per image or pair).
 """
 
 from __future__ import annotations
@@ -164,12 +167,12 @@ def _datatype(path: str, body: bytes) -> np.dtype:
                struct.unpack("<I", body[16:20])[0])
         if size in ieee and offset == 0 and got == ieee[size]:
             return np.dtype(f"<f{size}")
-    elif cls == 0 and not bits0 & 8 and size in (1, 2):
+    elif cls == 0 and size in ((4,) if bits0 & 8 else (1, 2)):
         offset, prec = struct.unpack("<HH", body[8:12])
         if offset == 0 and prec == 8 * size:
-            return np.dtype(f"<u{size}")
+            return np.dtype(f"<{'i' if bits0 & 8 else 'u'}{size}")
     raise _fail(path, f"datatype class {cls} of {size} bytes (reads "
-                "float32, float64, uint8, uint16)")
+                "float32, float64, uint8, uint16, int32)")
 
 
 def _filters(path: str, body: bytes) -> List[int]:
@@ -278,7 +281,8 @@ def _datatype_msg(dtype: np.dtype) -> bytes:
         return struct.pack("<BBBBIHHBBBBI", 0x11, 0x20, prec - 1, 0,
                            dtype.itemsize, 0, prec, exp_loc, exp_size, 0,
                            mant, bias)
-    return struct.pack("<BBBBIHH", 0x10, 0, 0, 0, dtype.itemsize, 0,
+    signed = 0x08 if dtype.kind == "i" else 0
+    return struct.pack("<BBBBIHH", 0x10, signed, 0, 0, dtype.itemsize, 0,
                        8 * dtype.itemsize)
 
 
@@ -287,6 +291,162 @@ def _chunk_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     first axis split into up to that many pieces."""
     first = -(-shape[0] // min(shape[0], 2 * CHUNK_K))
     return (first,) + tuple(shape[1:])
+
+
+def _dataset_header(arr: np.ndarray, gzip: Optional[int], put) -> bytes:
+    """The object header of one dataset whose data ``put`` places: empty
+    arrays contiguous at the undefined address (as h5py writes them),
+    else contiguous, or with ``gzip`` chunked and deflated."""
+    rank = arr.ndim
+    space = struct.pack("<BBB5x", 1, rank, 1) + struct.pack(
+        f"<{2 * rank}Q", *arr.shape, *arr.shape)
+    msgs = [(MSG_DATASPACE, space, 0), (MSG_DATATYPE,
+                                        _datatype_msg(arr.dtype), 1)]
+    if gzip is None or arr.size == 0:
+        data = put(arr.tobytes()) if arr.size else UNDEF
+        msgs.append((MSG_FILL, struct.pack("<BBBB", 2, 2, 0, 0), 1))
+        msgs.append((MSG_LAYOUT, struct.pack("<BBQQ", 3, 1, data,
+                                             arr.nbytes), 0))
+        return _object_header(msgs)
+    level = int(gzip)
+    if not 0 <= level <= 9:
+        raise ValueError(f"write_datasets: gzip level {gzip}")
+    chunk = _chunk_shape(arr.shape)
+    entries = []
+    for start in range(0, arr.shape[0], chunk[0]):
+        block = np.zeros(chunk, arr.dtype)
+        part = arr[start:start + chunk[0]]
+        block[:len(part)] = part
+        blob = zlib.compress(block.tobytes(), level)
+        offs = (start,) + (0,) * rank
+        entries.append((offs, len(blob), put(blob)))
+    keys = b"".join(struct.pack("<II", size, 0)
+                    + struct.pack(f"<{rank + 1}Q", *offs)
+                    + struct.pack("<Q", addr)
+                    for offs, size, addr in entries)
+    last = (entries[-1][0][0] + chunk[0],) + tuple(chunk[1:]) + (0,)
+    keys += struct.pack("<II", 0, 0) + struct.pack(f"<{rank + 1}Q", *last)
+    key_size = 8 + 8 * (rank + 1)
+    ctree = put(b"TREE" + struct.pack("<BBHQQ", 1, 0, len(entries), UNDEF,
+                                      UNDEF) + keys
+                + b"\0" * ((2 * CHUNK_K - len(entries)) * (key_size + 8)))
+    msgs.append((MSG_FILL, struct.pack("<BBBB", 2, 3, 0, 0), 1))
+    msgs.append((MSG_LAYOUT, struct.pack(
+        f"<BBBQ{rank + 1}I", 3, 2, rank + 1, ctree, *chunk,
+        arr.dtype.itemsize), 0))
+    msgs.append((MSG_FILTERS, struct.pack("<BB6x", 1, 1)
+                 + struct.pack("<HHHH", FILTER_DEFLATE, 8, 1, 1)
+                 + b"deflate\0" + struct.pack("<I4x", level), 1))
+    return _object_header(msgs)
+
+
+_TREE_BYTES = 24 + 8 * (2 * GROUP_K + 1) + 8 * 2 * GROUP_K
+_SNOD_BYTES = 8 + 40 * 2 * LEAF_K
+
+
+def _group(children: Dict[str, int], put, out: bytearray) -> Tuple[int, int,
+                                                                   int]:
+    """Write a symbol-table group of ``children`` (name -> object header
+    address): its local heap, symbol-table nodes of up to 2 * LEAF_K
+    entries in name order, and a v1 B-tree over them of as many levels as
+    its 2 * GROUP_K-wide nodes need. Returns (header, B-tree, heap)
+    addresses."""
+    names = sorted(children, key=lambda n: n.encode())
+    heap_blob = bytearray(_pad8(b"\0"))            # "" at offset 0
+    offsets = {}
+    for n in names:
+        offsets[n] = len(heap_blob)
+        heap_blob += _pad8(n.encode() + b"\0")
+    heap_data = put(bytes(heap_blob))
+    # free-list offset 1: HDF5's "no free block" (H5HL_FREE_NULL)
+    heap = put(b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_blob), 1,
+                                     heap_data))
+    # level 0: (node address, heap offset of its largest name)
+    level = []
+    for i in range(0, max(len(names), 1), 2 * LEAF_K):
+        part = names[i:i + 2 * LEAF_K]
+        body = b"".join(struct.pack("<QQI4x16x", offsets[n], children[n], 0)
+                        for n in part)
+        snod = put(b"SNOD" + struct.pack("<BxH", 1, len(part)) + body
+                   + b"\0" * (_SNOD_BYTES - 8 - len(body)))
+        level.append((snod, offsets[part[-1]] if part else 0))
+    depth = 0
+    while True:
+        nodes = [level[i:i + 2 * GROUP_K]
+                 for i in range(0, len(level), 2 * GROUP_K)]
+        out.extend(b"\0" * (-len(out) % 8))
+        first = len(out)
+        addrs = [first + k * _TREE_BYTES for k in range(len(nodes))]
+        for k, kids in enumerate(nodes):
+            left = addrs[k - 1] if k else UNDEF
+            right = addrs[k + 1] if k + 1 < len(nodes) else UNDEF
+            body = struct.pack("<Q", 0) + b"".join(
+                struct.pack("<QQ", child, key) for child, key in kids)
+            out.extend(b"TREE" + struct.pack("<BBHQQ", 0, depth, len(kids),
+                                             left, right) + body
+                       + b"\0" * (_TREE_BYTES - 24 - len(body)))
+        level = [(a, kids[-1][1]) for a, kids in zip(addrs, nodes)]
+        if len(level) == 1:
+            break
+        depth += 1
+    tree = level[0][0]
+    header = put(_object_header([(MSG_SYMBOL_TABLE,
+                                  struct.pack("<QQ", tree, heap), 0)]))
+    return header, tree, heap
+
+
+WRITE_DTYPES = ("<f4", "<f8", "|u1", "<u2", "<i4")
+
+
+def write_datasets(path: str, datasets: Dict[str, np.ndarray],
+                   gzip: Optional[int] = None) -> None:
+    """Write a new HDF5 file holding every ``name -> array`` of
+    ``datasets`` (float32, float64, uint8, uint16 or int32, at least 1-D;
+    empty arrays too), each contiguous or, with ``gzip`` (a level 0-9),
+    chunked and deflated. A ``/`` in a name makes nested groups, as h5py's
+    create_group and create_dataset do; a name may not be both a group and
+    a dataset."""
+    tree: dict = {}
+    for name, array in datasets.items():
+        arr = np.asarray(array)
+        dtype = arr.dtype.newbyteorder("<")
+        if dtype.str not in WRITE_DTYPES or arr.ndim == 0:
+            raise ValueError(f"write_datasets: {name!r} {arr.dtype} "
+                             f"{arr.shape} (writes float32, float64, uint8, "
+                             "uint16 and int32 arrays of rank >= 1)")
+        parts = [p for p in name.split("/") if p]
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"write_datasets: {p!r} in {name!r} is a "
+                                 "dataset")
+        if not parts or parts[-1] in node:
+            raise ValueError(f"write_datasets: {name!r} is empty or "
+                             "written twice")
+        node[parts[-1]] = np.ascontiguousarray(arr.astype(dtype,
+                                                          copy=False))
+    out = bytearray(96)                          # superblock, filled last
+
+    def put(blob: bytes) -> int:
+        out.extend(b"\0" * (-len(out) % 8))
+        addr = len(out)
+        out.extend(blob)
+        return addr
+
+    def write(node) -> Tuple[int, int, int]:
+        kids = {n: (write(sub)[0] if isinstance(sub, dict)
+                    else put(_dataset_header(sub, gzip, put)))
+                for n, sub in node.items()}
+        return _group(kids, put, out)
+
+    root, rtree, rheap = write(tree)
+    struct.pack_into("<8sBBBBBBBxHHI", out, 0, SIGNATURE, 0, 0, 0, 0, 0,
+                     8, 8, LEAF_K, GROUP_K, 0)
+    struct.pack_into("<QQQQ", out, 24, 0, UNDEF, len(out), UNDEF)
+    struct.pack_into("<QQI4xQQ", out, 56, 0, root, 1, rtree, rheap)
+    with open(path, "wb") as fh:
+        fh.write(out)
 
 
 def write_dataset(path: str, name: str, array,
@@ -301,81 +461,7 @@ def write_dataset(path: str, name: str, array,
             or arr.size == 0:
         raise ValueError(f"write_dataset: {arr.dtype} {arr.shape} (writes "
                          "non-empty float32, float64, uint8, uint16 arrays)")
-    arr = np.ascontiguousarray(arr.astype(dtype, copy=False))
     leaf = name.strip("/")
     if not leaf or "/" in leaf:
         raise ValueError(f"write_dataset: {name!r} is not a root dataset")
-    rank = arr.ndim
-    out = bytearray(96)                          # superblock, filled last
-
-    def put(blob: bytes) -> int:
-        out.extend(b"\0" * (-len(out) % 8))
-        addr = len(out)
-        out.extend(blob)
-        return addr
-
-    # root group: local heap ("" at 0, the name at 8), SNOD, B-tree
-    names = _pad8(b"\0") + _pad8(leaf.encode() + b"\0")
-    heap_data = put(names)
-    heap = put(b"HEAP" + struct.pack("<B3xQQQ", 0, len(names), 1,
-                                     heap_data))
-    # the dataset's object header is placed after its data; reserve the
-    # SNOD and the B-tree first and patch the header address in
-    snod = put(b"SNOD" + struct.pack("<BxH", 1, 1) + b"\0" * (40 * 2
-                                                               * LEAF_K))
-    gtree = put(b"TREE" + struct.pack("<BBHQQ", 0, 0, 1, UNDEF, UNDEF)
-                + struct.pack("<QQQ", 0, snod, 8)
-                + b"\0" * (8 * (2 * GROUP_K - 1) * 2))
-    root = put(_object_header([(MSG_SYMBOL_TABLE,
-                                struct.pack("<QQ", gtree, heap), 0)]))
-
-    space = struct.pack("<BBB5x", 1, rank, 1) + struct.pack(
-        f"<{2 * rank}Q", *arr.shape, *arr.shape)
-    msgs = [(MSG_DATASPACE, space, 0), (MSG_DATATYPE, _datatype_msg(dtype),
-                                        1)]
-    if gzip is None:
-        data = put(arr.tobytes())
-        msgs.append((MSG_FILL, struct.pack("<BBBB", 2, 2, 0, 0), 1))
-        msgs.append((MSG_LAYOUT, struct.pack("<BBQQ", 3, 1, data,
-                                             arr.nbytes), 0))
-    else:
-        level = int(gzip)
-        if not 0 <= level <= 9:
-            raise ValueError(f"write_dataset: gzip level {gzip}")
-        chunk = _chunk_shape(arr.shape)
-        entries = []
-        for start in range(0, arr.shape[0], chunk[0]):
-            block = np.zeros(chunk, dtype)
-            part = arr[start:start + chunk[0]]
-            block[:len(part)] = part
-            blob = zlib.compress(block.tobytes(), level)
-            offs = (start,) + (0,) * rank
-            entries.append((offs, len(blob), put(blob)))
-        keys = b"".join(struct.pack("<II", size, 0)
-                        + struct.pack(f"<{rank + 1}Q", *offs)
-                        + struct.pack("<Q", addr)
-                        for offs, size, addr in entries)
-        last = (entries[-1][0][0] + chunk[0],) + tuple(chunk[1:]) + (0,)
-        keys += struct.pack("<II", 0, 0) + struct.pack(f"<{rank + 1}Q",
-                                                       *last)
-        key_size = 8 + 8 * (rank + 1)
-        slots = 2 * CHUNK_K
-        ctree = put(b"TREE" + struct.pack("<BBHQQ", 1, 0, len(entries),
-                                          UNDEF, UNDEF) + keys
-                    + b"\0" * ((slots - len(entries)) * (key_size + 8)))
-        msgs.append((MSG_FILL, struct.pack("<BBBB", 2, 3, 0, 0), 1))
-        msgs.append((MSG_LAYOUT, struct.pack(
-            f"<BBBQ{rank + 1}I", 3, 2, rank + 1, ctree, *chunk,
-            dtype.itemsize), 0))
-        msgs.append((MSG_FILTERS, struct.pack("<BB6x", 1, 1)
-                     + struct.pack("<HHHH", FILTER_DEFLATE, 8, 1, 1)
-                     + b"deflate\0" + struct.pack("<I4x", level), 1))
-    dset = put(_object_header(msgs))
-    # patch the SNOD entry: name offset 8, the dataset's header, no cache
-    struct.pack_into("<QQI4x16x", out, snod + 8, 8, dset, 0)
-    struct.pack_into("<8sBBBBBBBxHHI", out, 0, SIGNATURE, 0, 0, 0, 0, 0,
-                     8, 8, LEAF_K, GROUP_K, 0)
-    struct.pack_into("<QQQQ", out, 24, 0, UNDEF, len(out), UNDEF)
-    struct.pack_into("<QQI4xQQ", out, 56, 0, root, 1, gtree, heap)
-    with open(path, "wb") as fh:
-        fh.write(out)
+    write_datasets(path, {leaf: arr}, gzip=gzip)

@@ -1,12 +1,16 @@
 """The port's HDF5 reader and writer (data/hdf5.py) against h5py.
 
 Files written by h5py read back bit for bit (contiguous; chunked with
-gzip 1 as the depth renderer writes them; shuffle + gzip; float32, float64,
-uint8 and uint16; shapes that are not a multiple of the chunk; a chunk
-index deep enough to need inner B-tree nodes; nested groups). Files that
-the port writes read back equal through h5py. Truncated files, big-endian
-data, the version-2 superblock (libver 'latest'), compact layouts, other
-filters and a user block raise ValueError.
+gzip 1 as the depth renderer writes them; shuffle + gzip; float32,
+float64, uint8 and uint16; shapes that are not a multiple of the chunk;
+a chunk index deep enough to need inner B-tree nodes; nested groups;
+int32). Files that the port writes read back equal through h5py: one
+root dataset (write_dataset) or many in nested groups (write_datasets:
+the localization exports' layout, float32 and int32, empty datasets,
+groups large enough for a multi-level B-tree of symbol-table nodes).
+Truncated files, big-endian data, the version-2 superblock (libver
+'latest'), compact layouts, other filters and a user block raise
+ValueError.
 """
 
 import numpy as np
@@ -14,7 +18,11 @@ import pytest
 
 h5py = pytest.importorskip("h5py")
 
-from geoformer_tpu_torch.data.hdf5 import read_dataset, write_dataset  # noqa: E402,E501
+from geoformer_tpu_torch.data.hdf5 import (  # noqa: E402
+    read_dataset,
+    write_dataset,
+    write_datasets,
+)
 
 RNG = np.random.default_rng(0)
 DEPTH = (RNG.random((120, 160)) * 10).astype(np.float32)
@@ -111,7 +119,7 @@ def _h5py_file(tmp_path, **kw):
     ("compact", lambda p: _h5py_file(
         p, data=np.arange(4.0, dtype=np.float32),
         dcpl=_compact_dcpl())),
-    ("datatype class", lambda p: _h5py_file(p, data=np.arange(4, dtype="<i4"))),
+    ("datatype class", lambda p: _h5py_file(p, data=np.arange(4, dtype="<i8"))),
     ("user block", lambda p: _h5py_file(
         p, data=DEPTH, file_kw=dict(userblock_size=512))),
 ])
@@ -147,3 +155,59 @@ def test_write_rejects_what_it_cannot_write(tmp_path):
             write_dataset(str(tmp_path / "b.h5"), "/depth", bad)
     with pytest.raises(ValueError):
         write_dataset(str(tmp_path / "b.h5"), "/a/depth", DEPTH)
+
+
+def _h5py_tree(path):
+    out = {}
+    with h5py.File(path, "r") as f:
+        f.visititems(lambda n, o: out.__setitem__(n, o[()]) if isinstance(
+            o, h5py.Dataset) else out.__setitem__(n, None))
+    return out
+
+
+@pytest.mark.parametrize("n_groups", [3, 300])
+def test_h5py_reads_what_write_datasets_writes(tmp_path, n_groups):
+    """hloc-style exports: <image>/keypoints, <image>/scores and
+    <pair>/matches0 (int32, empty for a pair without matches), image names
+    with '/' in them; 300 groups need two B-tree levels at the root."""
+    data = {}
+    for i in range(n_groups):
+        k = i % 7
+        data[f"db/{i}.jpg/keypoints"] = _array(np.float32, (k, 2))
+        data[f"db/{i}.jpg/scores"] = np.ones(k, np.float32)
+        data[f"db{i}.jpg_q.jpg/matches0"] = (
+            np.arange(k, dtype=np.int32) - 1)
+    path = str(tmp_path / "x.h5")
+    write_datasets(path, data)
+    got = _h5py_tree(path)
+    assert {k for k, v in got.items() if v is not None} == set(data)
+    for k, v in data.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k], v)
+        np.testing.assert_array_equal(read_dataset(path, k), v)
+    assert got["db"] is None and got["db/0.jpg"] is None
+
+
+def test_write_datasets_gzip_and_reads_h5py_int32(tmp_path):
+    path = str(tmp_path / "g.h5")
+    data = {"a/depth": DEPTH, "b": _array(np.uint16, (9, 4))}
+    write_datasets(path, data, gzip=4)
+    with h5py.File(path, "r") as f:
+        assert f["a/depth"].compression == "gzip"
+        np.testing.assert_array_equal(f["a/depth"][()], DEPTH)
+        np.testing.assert_array_equal(f["b"][()], data["b"])
+    theirs = str(tmp_path / "h.h5")
+    m0 = np.array([3, -1, 0, 7], np.int32)
+    with h5py.File(theirs, "w") as f:
+        f.create_dataset("p/matches0", data=m0)
+    got = read_dataset(theirs, "p/matches0")
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, m0)
+
+
+def test_write_datasets_rejects_what_it_cannot_write(tmp_path):
+    path = str(tmp_path / "b.h5")
+    for bad in ({"x": np.zeros(3, np.int64)}, {"x": np.float32(1.0)},
+                {"a": DEPTH, "a/b": DEPTH}, {"/": DEPTH}):
+        with pytest.raises(ValueError):
+            write_datasets(path, bad)

@@ -317,3 +317,167 @@ def depth_batch(seed: int, b: int = 2, hw=(64, 64), rows: int = 48,
             "depth0": np.stack(d0s), "depth1": np.stack(d1s),
             "T_0to1": T, "T_1to0": np.linalg.inv(T).astype(np.float32),
             "K0": Kb, "K1": Kb.copy(), "scale0": sc, "scale1": sc.copy()}
+
+
+LOC_HW = (480, 640)
+LOC_K = np.array([[520.0, 0, 320], [0, 520.0, 240], [0, 0, 1]])
+
+
+def localization_scene(root, n_db: int = 5, n_query: int = 2,
+                       seed: int = 3) -> dict:
+    """A seeded localization scene without images: 600 points on the
+    localization protocol's three planes, ``n_db`` posed db cameras in an
+    NVM (model.nvm) and a COLMAP database (db.db), ``n_query`` query
+    cameras in queries.txt, each query paired with its 3 nearest db
+    cameras. ``match(a, b)`` is an exact matcher: the points seen by both
+    cameras, [N, 4] (x_a, y_a, x_b, y_b), with 0.2 px noise. Returns the
+    paths, the ground-truth poses, ``match`` and the query pairs."""
+    import os
+    import zlib
+
+    from geoformer_tpu_torch.data.planes import look_at
+    from geoformer_tpu_torch.eval.colmap_io import ColmapDatabase
+    from geoformer_tpu_torch.eval.sfm_localize import rotmat2qvec
+
+    rng = np.random.default_rng(seed)
+    h, w = LOC_HW
+    K = LOC_K
+    planes = [((-5.0, -3.0, 8.0), (10.0, 0, 0), (0, 6.0, 0)),
+              ((-5.0, 2.2, 2.0), (10.0, 0, 0), (0, 1.2, 6.0)),
+              ((-4.5, -3.0, 2.0), (0, 0, 6.0), (0, 6.0, 0))]
+    pts = np.concatenate([
+        np.asarray(o) + rng.random((200, 1)) * np.asarray(e1)
+        + rng.random((200, 1)) * np.asarray(e2) for o, e1, e2 in planes])
+    target = np.array([0.0, 0.0, 8.0])
+    cams = {}
+    for i in range(n_db):
+        c = np.array([-2.0 + 4.0 * i / (n_db - 1), rng.uniform(-.3, .3),
+                      rng.uniform(-.3, .4)])
+        cams[f"db{i:02d}.jpg"] = look_at(c, target + rng.uniform(-.4, .4, 3)
+                                         * [1, 1, 0])
+    queries = {}
+    for i in range(n_query):
+        c = np.array([-1.2 + 2.4 * i / max(n_query - 1, 1) + 0.25,
+                      rng.uniform(-.2, .2), 0.4])
+        queries[f"q{i:02d}.jpg"] = look_at(c, target)
+    allcams = {**cams, **queries}
+
+    def project(T, X):
+        pc = X @ T[:3, :3].T + T[:3, 3]
+        uv = pc @ K.T
+        uv = uv[:, :2] / uv[:, 2:]
+        seen = (pc[:, 2] > 0.2) & (uv[:, 0] > 0) & (uv[:, 0] < w) \
+            & (uv[:, 1] > 0) & (uv[:, 1] < h)
+        return uv, seen
+
+    def match(a, b):
+        ua, sa = project(allcams[a], pts)
+        ub, sb = project(allcams[b], pts)
+        both = sa & sb
+        r = np.random.default_rng(zlib.crc32(f"{a} {b}".encode()))
+        m = np.concatenate([ua[both], ub[both]], 1)
+        return m + r.normal(0, 0.2, m.shape)
+
+    nvm = os.path.join(root, "model.nvm")
+    with open(nvm, "w") as f:
+        f.write(f"NVM_V3\n\n{n_db}\n")
+        for name, T in cams.items():
+            R = T[:3, :3]
+            c = -R.T @ T[:3, 3]
+            q = rotmat2qvec(R)
+            f.write(f"./{name} {K[0, 0]} {' '.join(map(str, q))} "
+                    f"{' '.join(map(str, c))} 0 0\n")
+        tracks = []
+        for pi, X in enumerate(pts[::4]):
+            tr = []
+            for ii, T in enumerate(cams.values()):
+                uv, seen = project(T, X[None])
+                if seen[0]:
+                    tr.append(f"{ii} {pi} {uv[0, 0]} {uv[0, 1]}")
+            if len(tr) >= 2:
+                tracks.append(f"{' '.join(map(str, X))} 128 128 128 "
+                              f"{len(tr)} {' '.join(tr)}")
+        f.write(f"\n{len(tracks)}\n" + "\n".join(tracks) + "\n")
+    db_path = os.path.join(root, "db.db")
+    db = ColmapDatabase(db_path)
+    for name in cams:
+        db.add_image(name, db.add_camera(1, w, h, [K[0, 0], K[1, 1],
+                                                   K[0, 2], K[1, 2]]))
+    db.close()
+    queries_txt = os.path.join(root, "queries.txt")
+    with open(queries_txt, "w") as f:
+        for name in queries:
+            f.write(f"{name} PINHOLE {w} {h} {K[0, 0]} {K[1, 1]} "
+                    f"{K[0, 2]} {K[1, 2]}\n")
+    centre = {n: -T[:3, :3].T @ T[:3, 3] for n, T in allcams.items()}
+    pairs = [(q, d) for q in queries
+             for d in sorted(cams, key=lambda d: np.linalg.norm(
+                 centre[d] - centre[q]))[:3]]
+    return {"nvm": nvm, "db": db_path, "queries_txt": queries_txt,
+            "db_cams": cams, "queries": queries, "match": match,
+            "query_pairs": pairs, "points": pts}
+
+
+class JaxPnpDraws:
+    """Record the samples JAX's pnp_ransac draws from each key it is given
+    (``patch_jax``: Gumbel top-6 over the valid entries, in call order)
+    and hand them, in the same order, to the port's PnP calls through
+    eval/sfm_localize.pnp_pose (``patch_port``)."""
+
+    def __init__(self):
+        self.draws = []
+
+    def patch_jax(self, monkeypatch):
+        import jax
+        import jax.numpy as jnp
+
+        from geoformer_tpu.engine import pnp
+
+        real = pnp.pnp_ransac
+
+        def record(key, pts3d, uv, K, valid, **kw):
+            g = jax.random.gumbel(key, (kw.get("iters", 256), len(valid)))
+            self.draws.append(np.asarray(jax.lax.top_k(
+                jnp.where(valid[None], g, -jnp.inf), 6)[1]))
+            return real(key, pts3d, uv, K, valid, **kw)
+
+        monkeypatch.setattr(pnp, "pnp_ransac", record)
+
+    def patch_port(self, monkeypatch, module):
+        """``module`` is where the port's driver looks pnp_pose up."""
+        real = module.pnp_pose
+
+        def injected(*args, **kw):
+            args = list(args)
+            if len(args) > 7:
+                args[7] = self.draws.pop(0)
+            else:
+                kw["sample_idx"] = self.draws.pop(0)
+            return real(*args, **kw)
+
+        monkeypatch.setattr(module, "pnp_pose", injected)
+
+
+def pose_gap(a, b):
+    """(rotation angle in degrees, camera-centre distance) between two
+    world->cam poses given as qvec/tvec."""
+    from geoformer_tpu_torch.eval.sfm_localize import qvec2rotmat
+
+    Ra, Rb = qvec2rotmat(a["qvec"]), qvec2rotmat(b["qvec"])
+    # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): exact at small angles, where
+    # the trace form loses ~0.03 deg to f32 rounding
+    ang = np.rad2deg(2 * np.arcsin(min(1.0, np.linalg.norm(Ra - Rb)
+                                       / (2 * np.sqrt(2)))))
+    return ang, np.linalg.norm(Ra.T @ a["tvec"] - Rb.T @ b["tvec"])
+
+
+def close_poses(got, ref, rot_deg=0.1, centre=0.02):
+    """Localization results equal but for the f32 PnP bar: ``ok`` equal,
+    inlier counts within 2, rotations within ``rot_deg`` and camera
+    centres within ``centre``."""
+    assert got.keys() == ref.keys()
+    for q in ref:
+        assert got[q]["ok"] == ref[q]["ok"], q
+        assert abs(got[q]["num_inliers"] - ref[q]["num_inliers"]) <= 2, q
+        ang, dc = pose_gap(got[q], ref[q])
+        assert ang < rot_deg and dc < centre, (q, ang, dc)
