@@ -127,7 +127,26 @@ Phases, each printing its own lines and its seconds:
    graph solve and PnP, the host syncs of each fit, graph solve and PnP
    query, the card's PnP (each query, the same injected samples) and
    SL(3) graph solve against the same calls on the host's CPU, and K1 and
-   K2 against their plain versions on one localization pair's inputs.
+   K2 against their plain versions on one localization pair's inputs;
+14. int8 and alternates: the eval-only `--int8` and `--int8-full`
+   forwards (the bench configuration, B=2, 480x640, random weights) with
+   K1 and K2 at 4 launches a forward and a request at coarse threshold
+   1e-6 for each, their ms per pair beside phase 3's bf16; at every
+   distinct int8 product shape of the `--int8-full` forward the card's
+   int32 accumulation (torch._int_mm) equal to the exact product, with the
+   int8 call's ms beside the bf16 cuDNN/cuBLAS call's; when the trained
+   checkpoint is there, the 40-pair self-check with `--int8` and
+   `--int8-full` in bf16 through K1/K2, each AUC held to the port's CPU
+   reference (the JAX TPU record beside it); the sinkhorn matcher's
+   forward at full width through K1/K2 with its peak memory, and, at
+   120x160 in f32, the sinkhorn and `--int8-full` forwards through the
+   kernels against their plain versions; the (16, 4) ladder and plain
+   LoFTR at 480x640, timed.
+
+Phases 10, 12 and 13 time K1 on their own inputs beside its plain
+version and the library call (SDPA under the dense box mask); phase 12
+also K4 and K5 on the depth step's inputs beside the plain backward and
+SDPA's backward.
 
 K1, K4 and K5 (a plan and then the pieces, several launches a call) and
 K2 (and SDPA beside it) are timed on the device by CUDA-graph replay
@@ -139,8 +158,8 @@ the event loop.
 Phases 1-7 read no data file: weights come from a seed and images from
 numpy (phase 7 decodes only files it wrote). Phase 8 reads the trained
 checkpoint and the held-out photographs through the port's own loaders,
-phase 9 the checkpoint; phase 9 writes only under a temporary directory,
-as phases 10-13 do (their corpora, checkpoint, figures, bundle, scene
+phase 9 and 14 the checkpoint; phase 9 writes only under a temporary
+directory, as phases 10-13 do (their corpora, checkpoint, figures, bundle, scene
 and sequence are made there and read back). Phase 12 reads
 checkpoints/tpu_r5_depth2.
 It needs only the standard library, torch and numpy. Any failure
@@ -802,10 +821,26 @@ def _k4_load(gk, centers, grid_hw) -> dict:
                 pieces=int(base[:, -1].max()))
 
 
-def _box_dq_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW):
+def _plain_and_library_ms(gk, q, k, v, g, centers, grid):
+    """ms of the plain box-window backward (dq, dk, dv at once) and of the
+    library call (SDPA's backward under the dense box mask) on these
+    inputs, as phase 4 times them."""
+    out, lse = gk.box_window_attention_fwd(q, k, v, centers, grid, 2)
+    plain_ms = time_ms(lambda: gk.box_window_attention_bwd_plain(
+        q, k, v, centers, out, lse, g, grid, 2), 3, warmup=1)
+    box = _dense_box(centers, grid, 2)
+    lib_ms = _sdpa_bwd_ms(q, k, v, box[:, None], g)
+    del box
+    return dict(plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}")
+
+
+def _box_dq_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW,
+                 library=False):
     """K5 alone on one centre pattern: against the plain backward, the
     off-grid rows' zero dq, the same bits twice, ms hot and with L2
-    flushed, the bound, the load; on the 60x80 grid unless ``grid``."""
+    flushed, the bound, the load (and with ``library`` the plain
+    backward's and the library call's ms); on the 60x80 grid unless
+    ``grid``."""
     from geoformer_tpu_torch.eval import box_kernels as bk
 
     t0 = time.perf_counter()
@@ -835,12 +870,14 @@ def _box_dq_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW):
     ms = bk.time_graph_ms(run, 20)
     cold_ms = bk.time_graph_cold_ms(run, 10)
     call_ms = time_ms(run, 20)
+    lib = (_plain_and_library_ms(gk, q, k, v, g, centers, grid) if library
+           else {})
     log("bwd_kernels", name="box_window_attention_bwd_dq",
         dtype=str(dtype), centres=pattern, shape=f"q{tuple(q.shape)}",
         rel_err=f"{rel:.3e}", rel_tol=tol, offgrid_rows=int(off.sum()),
         offgrid_dq_zero=off_zero, same_bits_twice=same_bits,
         kernel_ms=f"{ms:.4f}", kernel_cold_ms=f"{cold_ms:.4f}",
-        call_ms=f"{call_ms:.4f}",
+        call_ms=f"{call_ms:.4f}", **lib,
         bound_ms=f"{bound:.4f}", bound_by=by,
         **_gather_load(gk, centers, grid),
         seconds=f"{time.perf_counter() - t0:.1f}")
@@ -849,9 +886,11 @@ def _box_dq_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW):
     check(same_bits, f"K5 {dtype} {pattern}: two calls differ")
 
 
-def _box_dkv_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW):
+def _box_dkv_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW,
+                  library=False):
     """K4 alone on one centre pattern: against the plain backward, the
-    same bits twice, ms hot and with L2 flushed, the bound, the load; on
+    same bits twice, ms hot and with L2 flushed, the bound, the load (and
+    with ``library`` the plain backward's and the library call's ms); on
     the 60x80 grid unless ``grid``."""
     from geoformer_tpu_torch.eval import box_kernels as bk
 
@@ -881,11 +920,13 @@ def _box_dkv_case(gk, q, k, v, g, centers, pattern, grid=GRID_HW):
     cold_ms = bk.time_graph_cold_ms(run, 10)
     call_ms = time_ms(run, 20)
     load = _k4_load(gk, centers, grid)
+    lib = (_plain_and_library_ms(gk, q, k, v, g, centers, grid) if library
+           else {})
     log("bwd_kernels", name="box_window_attention_bwd_dkv",
         dtype=str(dtype), centres=pattern, shape=f"q{tuple(q.shape)}",
         rel_err=f"{rel:.3e}", rel_tol=tol, same_bits_twice=same_bits,
         kernel_ms=f"{ms:.4f}", kernel_cold_ms=f"{cold_ms:.4f}",
-        call_ms=f"{call_ms:.4f}",
+        call_ms=f"{call_ms:.4f}", **lib,
         bound_ms=f"{bound:.4f}", bound_by=by, **load,
         seconds=f"{time.perf_counter() - t0:.1f}")
     check(rel <= tol, f"K4 {dtype} {pattern}: relative error {rel} > {tol}")
@@ -2625,7 +2666,8 @@ def _depth_instrumented(loop_mod, gk):
 def _k1_vs_plain(gk, q, k, v, centers, grid, tag, **fields):
     """K1 against its plain version on these inputs (out and in-grid LSE,
     phase 2's bars), logged under ``tag`` with its device ms beside the
-    plain version's and its bound; returns (ms, bound_ms)."""
+    plain version's, the library call's (SDPA under the dense box mask)
+    and its bound; returns (ms, bound_ms)."""
     from geoformer_tpu_torch.eval import box_kernels as bk
 
     grid = tuple(grid)
@@ -2649,11 +2691,18 @@ def _k1_vs_plain(gk, q, k, v, centers, grid, tag, **fields):
     ms = bk.time_graph_ms(run, 50)
     plain_ms = time_ms(lambda: gk.box_window_attention_plain(
         q, k, v, centers, grid, 2), 3, warmup=1)
+    # the library call: SDPA under the dense box mask, as phase 2 times it
+    box = _dense_box(centers, grid, 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=box[:, None]), 5)
+    del box
     log(tag, kernel="box_window_attention", **fields, dtype=str(q.dtype),
         shape=f"q{tuple(q.shape)}", grid=grid, max_abs_err=f"{err:.3e}",
         tol=tol, lse_max_abs_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
         kernel_ms=f"{ms:.4f}", call_ms=f"{time_ms(run, 50):.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=by,
         **_gather_load(gk, centers, grid))
     what = " ".join(str(x) for x in fields.values())
     check(err <= tol, f"K1 {what} {q.dtype}: out error {err} > {tol}")
@@ -2880,8 +2929,8 @@ def _depth_live_step(gk, device, state, batch):
         grid = tuple(kept["box_window_attention_fwd"][i][4])
         g = torch.randn(q.shape, generator=gen, device=device)
         what = f"depth train step, cross layer 0, call {i}"
-        _box_dkv_case(gk, q, k, v, g, centers, what, grid)
-        _box_dq_case(gk, q, k, v, g, centers, what, grid)
+        _box_dkv_case(gk, q, k, v, g, centers, what, grid, library=i == 0)
+        _box_dq_case(gk, q, k, v, g, centers, what, grid, library=i == 0)
 
 
 # ------------------------------------------------------------ phase 13 -----
@@ -3228,6 +3277,410 @@ def phase_localize_slam(device):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 14 -----
+
+# The eval-only int8 paths (--int8: int8 backbone; --int8-full: int8
+# everywhere) and the forward's alternates (sinkhorn matcher, the (16, 4)
+# ladder, plain LoFTR). The int8 self-check's AUC@1/3/5/10 references:
+# the port's own eval/selfcheck.py (--bf16 --pallas --device cpu, 40
+# procedural pairs of 480x640, GAM and fit seed 0) on the CPU of the
+# card's machine (PERF.md §6). The card draws the GAM's and the fit's
+# samples from other streams, so the bars are phase 8's, the wider of its
+# f32 and bf16 bars at each threshold (one pair of 40 moves an AUC by up
+# to 0.025).
+SELFCHECK_INT8_REF = {
+    "int8": (0.6291, 0.852, 0.9012, 0.9381),
+    "int8_full": (0.6307, 0.85, 0.9122, 0.9561),
+}
+SELFCHECK_INT8_TOL = tuple(max(a, b) for a, b in zip(
+    SELFCHECK_TOL["float32"], SELFCHECK_TOL["bfloat16"]))
+# JAX on a TPU v5e (RESULTS.md:384-395): accuracy context only, no bar.
+SELFCHECK_INT8_TPU = {"int8_full": (0.437, 0.692, 0.795, 0.873)}
+# An int8 forward through the kernels against the same forward through
+# their plain versions: the kernels' f32 sums in another order can move a
+# value across a rounding boundary of its quantum, and the layers after it
+# carry that (tests/test_torch_port_int8_model.py's bars).
+INT8_PARITY = dict(overlap=0.9, kp_same=0.8, kp_window_px=8.0, gam=0.25)
+INT8_MODES = ("int8", "int8_full")
+
+
+def _int8_config(cfg, mode):
+    from geoformer_tpu_torch.config import with_int8
+
+    return with_int8(cfg, int8=True, int8_full=mode == "int8_full")
+
+
+def _record_int8_shapes(model):
+    """Forward hooks that count each distinct int8 product of ``model``:
+    ("conv", input shape, weight shape, stride, padding) or ("dense",
+    (rows, K), weight shape). Returns (counts, hooks)."""
+    from geoformer_tpu_torch.models.layers import Int8Conv, Int8Dense
+
+    counts = {}
+
+    def hook(mod, args, out):
+        x = args[0]
+        if isinstance(mod, Int8Conv):
+            key = ("conv", tuple(x.shape), tuple(mod.weight.shape),
+                   mod.stride, mod.padding)
+        else:
+            key = ("dense", (x.numel() // x.shape[-1], x.shape[-1]),
+                   tuple(mod.weight.shape))
+        counts[key] = counts.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Int8Conv, Int8Dense))]
+    return counts, hooks
+
+
+def _int8_products(device, shapes):
+    """At each distinct int8 product shape of the forward: the card's int32
+    accumulation (torch._int_mm on im2col rows) against the exact integer
+    product (f64 on the card: |sum| < 2^53), bit for bit, and the int8
+    call's ms (quantize, product, dequantize) beside the bf16 cuDNN /
+    cuBLAS call's on the same shapes."""
+    import torch.nn.functional as F
+
+    from geoformer_tpu_torch.ops import quantize as qz
+
+    gen = torch.Generator().manual_seed(16)
+    totals = {"int8_ms": 0.0, "bf16_ms": 0.0}
+    for key, calls in sorted(shapes.items(), key=str):
+        kind, xs, ws = key[:3]
+        x = torch.randn(xs, generator=gen).to(device, torch.bfloat16)
+        w = (torch.randn(ws, generator=gen) * 0.05).to(device)
+        xq, _ = qz.quantize_symmetric(x)
+        if kind == "conv":
+            stride, pad = key[3:]
+            wq, _ = qz.quantize_symmetric(w, dims=(1, 2, 3))
+            got = qz.conv_int32(xq, wq, stride, pad)
+            exact = F.conv2d(xq.double(), wq.double(), stride=stride,
+                             padding=pad).permute(0, 2, 3, 1)
+            wb = w.to(torch.bfloat16)
+            int8_ms = time_ms(lambda: qz.int8_conv(x, w, stride, pad), 10)
+            bf16_ms = time_ms(lambda: F.conv2d(x, wb, stride=stride,
+                                               padding=pad), 10)
+        else:
+            wq, _ = qz.quantize_symmetric(w, dims=(1,))
+            got = qz.int_mm(xq, wq.t())
+            exact = xq.double() @ wq.double().t()
+            wb = w.to(torch.bfloat16)
+            int8_ms = time_ms(lambda: qz.int8_dense(x, w), 10)
+            bf16_ms = time_ms(lambda: F.linear(x, wb), 10)
+        equal = bool(torch.equal(got.double(), exact))
+        del exact, got
+        totals["int8_ms"] += calls * int8_ms
+        totals["bf16_ms"] += calls * bf16_ms
+        log("int8_products", kind=kind, x=xs, w=ws,
+            **({"stride": key[3], "pad": key[4]} if kind == "conv" else {}),
+            calls_per_forward=calls, int32_equal_exact=equal,
+            int8_ms=f"{int8_ms:.4f}", bf16_ms=f"{bf16_ms:.4f}")
+        check(equal, f"int8 {kind} {xs}x{ws}: the int32 accumulation is "
+              "not the exact product")
+    torch.cuda.empty_cache()
+    log("int8_products", shapes=len(shapes),
+        int8_ms_per_forward=f"{totals['int8_ms']:.3f}",
+        bf16_ms_per_forward=f"{totals['bf16_ms']:.3f}")
+
+
+def _forward_requests(device, cfg, pairs, label, phase3_ms=None,
+                      requests=2, live=True):
+    """The BatchedMatcher at full width, B=2, random weights (seed 0): one
+    warm-up request, ``requests`` timed ones, then one at coarse threshold
+    LIVE_THR (the GAM on real inliers); K1 and K2 at 4 launches a forward.
+    Returns the model."""
+    import dataclasses
+
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher
+    from geoformer_tpu_torch.models import GeoFormer
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    imgs0, imgs1 = [a for a, _ in pairs], [b for _, b in pairs]
+    model = weights.random_init(GeoFormer(cfg), seed=0)
+    matcher = BatchedMatcher(cfg, model, batch_size=MAIN_B, device=device)
+    matcher.match_batch(imgs0, imgs1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(requests):
+        res = matcher.match_batch(imgs0, imgs1, return_geo=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (requests * MAIN_B)
+    launches = dict(gk.LAUNCHES)
+    log(label, batch=MAIN_B, requests=requests, ms_per_pair=f"{ms:.3f}",
+        phase3_bf16_ms_per_pair=(None if phase3_ms is None
+                                 else f"{phase3_ms:.3f}"),
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches=launches)
+    _check_outputs(res, MAIN_HW)
+    for name, count in launches.items():
+        want = 4 * requests if name in FORWARD_KERNELS else 0
+        check(count == want, f"{label}: {name} launched {count} times in "
+              f"{requests} forwards, expected {want // requests} each")
+    if live:
+        live_cfg = cfg.replace(match=dataclasses.replace(cfg.match,
+                                                         thr=LIVE_THR))
+        live_model = GeoFormer(live_cfg)
+        live_model.load_state_dict(model.state_dict())
+        lm = BatchedMatcher(live_cfg, live_model, batch_size=MAIN_B,
+                            device=device)
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = lm.match_batch(imgs0, imgs1, return_geo=True)
+        torch.cuda.synchronize()
+        has_h = [r[3]["has_H"] for r in res]
+        launches = dict(gk.LAUNCHES)
+        log(label + "_live_gam", coarse_thr=LIVE_THR,
+            ms_per_pair=f"{(time.perf_counter() - t0) * 1e3 / MAIN_B:.3f}",
+            has_H=has_h, num_inliers=[r[3]["num_inliers"] for r in res],
+            valid_matches=[len(r[2]) for r in res], launches=launches)
+        _check_outputs(res, MAIN_HW)
+        check(any(has_h), f"{label}: the live-GAM request found no "
+              "homography")
+        for name, count in launches.items():
+            want = 4 if name in FORWARD_KERNELS else 0
+            check(count == want, f"{label} live GAM: {name} launched "
+                  f"{count} times, expected {want}")
+        del lm, live_model
+    return model
+
+
+def _kernels_vs_plain(device, cfg, label, int8):
+    """At SMALL_HW in f32, ``cfg``'s forward through K1/K2 against the
+    same forward through their plain versions on this card, the same
+    weights and RANSAC draws: the GAM's output features, then the final
+    matches (phase 3's bars). An int8 model takes the trained checkpoint
+    on two self-check pairs, when it is there, and INT8_PARITY's bars: a
+    random model's matches at a low threshold hang on values that a
+    quantum moves (on an H100 its int8 GAM features differed by ~0.1,
+    within the bar, and a quarter of its matches changed)."""
+    import dataclasses
+
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.eval import selfcheck as sc
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+    from geoformer_tpu_torch.models import GeoFormer
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    if int8:
+        if not CKPT.is_file():
+            print(f"[{label}] absent path={CKPT}", flush=True)
+            return
+        cfg = cfg.replace(match=dataclasses.replace(cfg.match,
+                                                    max_matches=256))
+        model = sc.load_model(cfg, str(CKPT), device)
+        base, warped = sc.make_pairs(2, SMALL_HW, SELFCHECK["seed"])[:2]
+        pairs = list(zip(base, warped))
+    else:
+        cfg = cfg.replace(match=dataclasses.replace(cfg.match, thr=1e-4,
+                                                    max_matches=256),
+                          fine_match=dataclasses.replace(cfg.fine_match,
+                                                         thr=1e-3))
+        model = weights.random_init(GeoFormer(cfg), 1).to(device).eval()
+        pairs = [textured_pair(SMALL_HW, 10 + s) for s in range(2)]
+    i0, i1 = (torch.from_numpy(np.ascontiguousarray(np.stack(
+        [p[j] for p in pairs])[..., None], np.float32)).to(device)
+        for j in (0, 1))
+
+    @torch.no_grad()
+    def run(fn):
+        gk.reset_launch_counts()
+        out = fn(torch.Generator(device).manual_seed(3))
+        torch.cuda.synchronize()
+        return out, dict(gk.LAUNCHES)
+
+    a, a_launch = run(lambda g: model(i0, i1, generator=g))
+    with plain_kernels():
+        b, b_launch = run(lambda g: model(i0, i1, generator=g))
+    with torch.no_grad():
+        cnn = model.backbone(torch.cat([i0, i1]))[0]
+
+    def gam(g):
+        return model.geo_module(cnn[:2], cnn[2:], a.matches1,
+                                cfg.coarse_scale, generator=g)[:2]
+
+    gam_k = run(gam)[0]
+    with plain_kernels():
+        gam_p = run(gam)[0]
+    gam_err = max((x - y).abs().max().item() for x, y in zip(gam_k, gam_p))
+    overlap, kp_max, kp_same = 1.0, 0.0, 1.0
+    for j in range(2):
+        def pairs_of(o):
+            v = o.matches.valid[j].cpu().numpy()
+            return set(zip(o.matches.i_ids[j].cpu().numpy()[v].tolist(),
+                           o.matches.j_ids[j].cpu().numpy()[v].tolist()))
+        pa, pb = pairs_of(a), pairs_of(b)
+        overlap = min(overlap, len(pa & pb) / max(len(pa | pb), 1))
+        sel = (a.fine.valid[j] & b.fine.valid[j]
+               & (a.matches.i_ids[j] == b.matches.i_ids[j]))
+        d = torch.maximum(
+            (a.fine.mkpts0[j][sel] - b.fine.mkpts0[j][sel]).abs().amax(-1),
+            (a.fine.mkpts1[j][sel] - b.fine.mkpts1[j][sel]).abs().amax(-1))
+        check(d.numel() > 0, f"{label}: no common fine matches")
+        kp_max = max(kp_max, d.max().item())
+        kp_same = min(kp_same, (d < PARITY["kp_px"]).float().mean().item())
+    gam_tol = INT8_PARITY["gam"] if int8 else GAM_TOL
+    log(label, size=f"{SMALL_HW[0]}x{SMALL_HW[1]}", dtype="float32",
+        matches=[int(x) for x in a.matches.valid.sum(1).tolist()],
+        has_H=a.geo.has_H.tolist(), plain_has_H=b.geo.has_H.tolist(),
+        gam_max_abs_err=f"{gam_err:.3e}", gam_tol=gam_tol,
+        match_overlap=f"{overlap:.4f}", max_kp_px=f"{kp_max:.4f}",
+        kp_within_0_05px=f"{kp_same:.4f}", kernel_launches=a_launch,
+        plain_launches=b_launch)
+    check(bool(a.geo.has_H.all()), f"{label}: no homography")
+    check(all(a_launch[k] == 4 for k in FORWARD_KERNELS),
+          f"{label}: the kernel path did not launch K1 and K2 4 times")
+    check(all(v == 0 for v in b_launch.values()),
+          f"{label}: the plain versions launched a kernel")
+    check(gam_err <= gam_tol, f"{label}: GAM outputs differ by {gam_err}")
+    check(overlap >= PARITY["overlap"], f"{label}: match overlap {overlap}")
+    if int8:
+        check(kp_same >= INT8_PARITY["kp_same"]
+              and kp_max <= INT8_PARITY["kp_window_px"],
+              f"{label}: keypoints {kp_same} within 0.05 px, max {kp_max}")
+    else:
+        check(kp_max < PARITY["kp_px"], f"{label}: a keypoint moved "
+              f"{kp_max} px")
+
+
+def _int8_selfcheck(device):
+    """The trained self-check (40 procedural pairs of 480x640) with --int8
+    and --int8-full in bf16 through K1/K2, each AUC held to the port's CPU
+    reference (SELFCHECK_INT8_REF, SELFCHECK_INT8_TOL)."""
+    from geoformer_tpu_torch.eval import selfcheck as sc
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    if not CKPT.is_file():
+        print(f"[int8_selfcheck] absent path={CKPT}", flush=True)
+        return
+    base, warped, Hs = sc.make_pairs(SELFCHECK["pairs"], SELFCHECK["hw"],
+                                     SELFCHECK["seed"])
+    forwards = math.ceil(SELFCHECK["pairs"] / sc.BATCH)
+    tol = SELFCHECK_INT8_TOL
+    for mode in INT8_MODES:
+        model = sc.load_model(sc.selfcheck_config(
+            bf16=True, pallas=True, int8=True,
+            int8_full=mode == "int8_full"), str(CKPT), device)
+        gk.reset_launch_counts()
+        res = sc.run_pairs(model, base, warped, Hs, SELFCHECK["ransac_thr"],
+                           device)
+        torch.cuda.synchronize()
+        launches = dict(gk.LAUNCHES)
+        rec = sc.summary(res)
+        ref = SELFCHECK_INT8_REF[mode]
+        delta = [round(a - b, 4) for a, b in zip(rec["auc@1/3/5/10"], ref)]
+        log("int8_selfcheck", mode=mode, dtype="bfloat16",
+            images="procedural", pairs=rec["pairs"],
+            auc=rec["auc@1/3/5/10"], cpu_ref_auc=ref, delta=delta, tol=tol,
+            jax_tpu_auc=SELFCHECK_INT8_TPU.get(mode),
+            correct=rec["correct@1/3/5/10"],
+            mean_matches=rec["mean_matches"], failed=rec["failed"],
+            forward_ms_per_pair=f"{res['match_s'] * 1e3 / rec['pairs']:.2f}",
+            fit_ms_per_pair=f"{res['fit_s'] * 1e3 / rec['pairs']:.2f}",
+            launches=launches)
+        _forward_launches(launches, forwards, f"int8 self-check {mode}")
+        check(all(abs(d) <= t_ for d, t_ in zip(delta, tol)),
+              f"int8 self-check {mode}: AUC {rec['auc@1/3/5/10']} against "
+              f"the CPU reference {ref}")
+        del model
+    torch.cuda.empty_cache()
+
+
+def _ladder_and_loftr(device):
+    """ResNetFPN_16_4 (the bench widths with a fourth stage of 512) on the
+    4 images of a B=2 request and plain LoFTR (f32, as the JAX model) on
+    B=2 pairs, 480x640, random weights: ms and output shapes."""
+    import dataclasses
+
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.config import BackboneConfig, bench_config
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+    from geoformer_tpu_torch.models.backbone import build_backbone
+    from geoformer_tpu_torch.models.loftr import LoFTR
+
+    pairs = [textured_pair(MAIN_HW, seed) for seed in range(MAIN_B)]
+    i0, i1 = (torch.from_numpy(np.stack([p[j] for p in pairs])[..., None])
+              .to(device) for j in (0, 1))
+    x = torch.cat([i0, i1])
+    for dtype in (torch.bfloat16, torch.float32):
+        bb = weights.random_init(build_backbone(BackboneConfig(
+            block_dims=(128, 196, 256, 512), resolution=(16, 4)),
+            dtype=dtype), 0).to(device).eval()
+        with torch.no_grad():
+            c, f = bb(x)
+            ms = time_ms(lambda: bb(x), 5)
+        log("ladder_16_4", dtype=str(dtype), images=tuple(x.shape),
+            coarse=tuple(c.shape), fine=tuple(f.shape), ms=f"{ms:.3f}")
+        check(c.shape == (4, 30, 40, 512) and f.shape == (4, 120, 160, 196)
+              and bool(torch.isfinite(c).all()), "the (16, 4) ladder's "
+              "outputs")
+        del bb, c, f
+    base = bench_config(use_bf16=False)
+    cfg = base.replace(match=dataclasses.replace(base.match, thr=LIVE_THR))
+    model = weights.random_init(LoFTR(cfg), 0).to(device).eval()
+    with torch.no_grad():
+        out = model(i0, i1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: model(i0, i1), 3, warmup=1)
+    log("loftr", dtype="float32", batch=MAIN_B, conf=tuple(out.conf.shape),
+        valid=out.valid.sum(1).tolist(), ms_per_pair=f"{ms / MAIN_B:.3f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    check(bool(torch.isfinite(out.mkpts1).all())
+          and bool(torch.isfinite(out.expec_f).all()), "LoFTR's outputs")
+    del model, out
+    torch.cuda.empty_cache()
+
+
+def phase_int8_alternates(device, phase3_ms):
+    """(a) the int8 products at every distinct shape of the --int8-full
+    bench forward against the exact product; (b) the --int8 and
+    --int8-full forwards at full width with K1/K2 4 times each; (c) the
+    trained int8 self-checks; (d) the sinkhorn forward at full width and,
+    small in f32, sinkhorn and --int8-full through K1/K2 against their
+    plain versions; (e) the (16, 4) ladder and plain LoFTR, timed."""
+    import dataclasses
+
+    from geoformer_tpu_torch.config import bench_config
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher
+
+    pairs = [textured_pair(MAIN_HW, seed) for seed in range(MAIN_B)]
+    bench = bench_config(use_bf16=True)
+    shapes = {}
+    for mode in INT8_MODES:
+        cfg = _int8_config(bench, mode)
+        model = _forward_requests(device, cfg, pairs, f"{mode}_forward",
+                                  phase3_ms)
+        if mode == "int8_full":
+            # one more request, counting the int8 products by shape
+            shapes, hooks = _record_int8_shapes(model)
+            BatchedMatcher(cfg, model, batch_size=MAIN_B,
+                           device=device).match_batch(
+                [a for a, _ in pairs], [b for _, b in pairs])
+            for h in hooks:
+                h.remove()
+        del model
+        torch.cuda.empty_cache()
+    _int8_products(device, shapes)
+    _int8_selfcheck(device)
+    sink = bench.replace(match=dataclasses.replace(bench.match,
+                                                   match_type="sinkhorn"))
+    _forward_requests(device, sink, pairs, "sinkhorn_forward", phase3_ms,
+                      requests=1, live=False)
+    torch.cuda.empty_cache()
+    small = bench_config(use_bf16=False)
+    _kernels_vs_plain(device, small.replace(match=dataclasses.replace(
+        small.match, match_type="sinkhorn")), "sinkhorn_parity", False)
+    _kernels_vs_plain(device, _int8_config(small, "int8_full"),
+                      "int8_full_parity", True)
+    _ladder_and_loftr(device)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -3278,6 +3731,7 @@ def main() -> int:
     timed("released", phase_released, device)
     timed("depth", phase_depth, device)
     timed("localize_slam", phase_localize_slam, device)
+    timed("int8_alternates", phase_int8_alternates, device, ms_per_pair)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

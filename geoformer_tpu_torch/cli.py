@@ -62,17 +62,16 @@ def _model(args):
         GeoFormerConfig,
         GeoModuleConfig,
         MatchConfig,
+        with_int8,
     )
     from geoformer_tpu_torch.models import GeoFormer
 
-    if args.int8 or args.int8_full:
-        _not_ported("--int8 / --int8-full", "ROADMAP queue 1, alternates")
-    cfg = GeoFormerConfig(
+    cfg = with_int8(GeoFormerConfig(
         match=MatchConfig(thr=args.match_thr, max_matches=args.max_matches),
         geo=GeoModuleConfig(ransac_iters=args.gam_ransac_iters,
                             max_inliers=args.gam_max_inliers,
                             use_pallas=args.pallas),
-        use_bf16=args.bf16)
+        use_bf16=args.bf16), args.int8, args.int8_full)
     model = GeoFormer(cfg)
     if args.ckpt is None:
         return cfg, weights.random_init(model, seed=0)
@@ -228,7 +227,8 @@ def cmd_infer(args):
     from geoformer_tpu_torch.eval.matcher import BatchedMatcher, load_gray
 
     if args.seq_shard > 1:
-        _not_ported("--seq-shard", "ROADMAP queue 1, sequence parallelism")
+        _not_ported("--seq-shard", "ROADMAP queue 1 item 3, sequence "
+                    "parallelism")
     # read the files before building the model: a bad path fails at once
     im0, sc0 = load_gray(args.image0, args.imsize)
     im1, sc1 = load_gray(args.image1, args.imsize)
@@ -417,8 +417,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="bf16 compute path (params stay f32)")
         sp.add_argument("--pallas", action="store_true",
                         help="the hand-written GAM kernels (K1, K2)")
-        sp.add_argument("--int8", action="store_true")
-        sp.add_argument("--int8-full", action="store_true")
+        sp.add_argument("--int8", action="store_true",
+                        help="dynamic int8 backbone convolutions (eval-only)")
+        sp.add_argument("--int8-full", action="store_true",
+                        help="int8 backbone AND transformer projections/MLPs "
+                             "(eval-only)")
         sp.add_argument("--device", default="cuda")
 
     t = sub.add_parser("train")

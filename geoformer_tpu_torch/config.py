@@ -3,9 +3,9 @@
 The port's own copy of the model and training dataclasses of
 geoformer_tpu/config.py, with the same fields and defaults, so a
 configuration written for one package reads the same in the other.
-Options that the port does not run yet (int8 paths, sequence parallelism,
-the sinkhorn matcher) are kept as fields so the dataclasses stay
-identical; the model raises NotImplementedError on them.
+Sequence parallelism (``seq_axis``), which the port does not run yet, is
+kept as a field so the dataclasses stay identical; the model raises
+NotImplementedError on it.
 """
 
 from __future__ import annotations
@@ -156,6 +156,18 @@ class TrainConfig:
     ckpt_dir: str = "checkpoints"
     log_every: int = 50
     ckpt_every_steps: int = 1000
+
+
+def with_int8(cfg: GeoFormerConfig, int8: bool = False,
+              int8_full: bool = False) -> GeoFormerConfig:
+    """``cfg`` with the eval-only int8 flags of the JAX command line:
+    ``--int8`` quantizes the backbone, ``--int8-full`` every stage (the
+    backbone, the coarse and fine stacks, the GAM)."""
+    r = dataclasses.replace
+    return cfg.replace(backbone=r(cfg.backbone, int8=int8 or int8_full),
+                       coarse=r(cfg.coarse, int8=int8_full),
+                       fine=r(cfg.fine, int8=int8_full),
+                       geo=r(cfg.geo, int8=int8_full))
 
 
 def bench_config(use_bf16: bool = True) -> GeoFormerConfig:

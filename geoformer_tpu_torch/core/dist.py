@@ -20,5 +20,5 @@ def all_gather_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             "gathering metrics over several processes is not ported yet "
-            "(ROADMAP queue 1, item 6: data parallelism)")
+            "(ROADMAP queue 1 item 2, data parallelism)")
     return metrics

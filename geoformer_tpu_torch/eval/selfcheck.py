@@ -9,7 +9,7 @@ driver.
 
     python -m geoformer_tpu_torch.eval.selfcheck \\
         --ckpt checkpoints/tpu_r3_main/params_final.npz [--bf16] [--pallas] \\
-        [--image held-out-photos] [--device cpu]
+        [--int8 | --int8-full] [--image held-out-photos] [--device cpu]
 
 ``--pallas`` selects the hand-written GAM kernels (the JAX flag's name);
 ``--image held-out-photos`` reads data/holdout_photos/*.png, the
@@ -40,6 +40,7 @@ from geoformer_tpu_torch.config import (
     GeoFormerConfig,
     GeoModuleConfig,
     MatchConfig,
+    with_int8,
 )
 from geoformer_tpu_torch.data.native import native_textures, native_warp
 from geoformer_tpu_torch.eval.hpatches import fit_homography_np
@@ -66,15 +67,16 @@ THRESHOLDS = (1, 3, 5, 10)
 BATCH = 4
 
 
-def selfcheck_config(bf16: bool = False, pallas: bool = False
+def selfcheck_config(bf16: bool = False, pallas: bool = False,
+                     int8: bool = False, int8_full: bool = False
                      ) -> GeoFormerConfig:
     """The JAX script's model: 1024 matches, 256 GAM hypotheses, 1024
-    inliers."""
-    return GeoFormerConfig(
+    inliers; ``int8`` quantizes the backbone, ``int8_full`` every stage."""
+    return with_int8(GeoFormerConfig(
         match=MatchConfig(max_matches=1024),
         geo=GeoModuleConfig(ransac_iters=256, max_inliers=1024,
                             use_pallas=pallas),
-        use_bf16=bf16)
+        use_bf16=bf16), int8, int8_full)
 
 
 def load_model(cfg: GeoFormerConfig, ckpt: str, device) -> GeoFormer:
@@ -207,8 +209,10 @@ def main(argv=None) -> None:
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--pallas", action="store_true",
                     help="the hand-written GAM kernels (K1, K2)")
-    ap.add_argument("--int8", action="store_true")
-    ap.add_argument("--int8-full", action="store_true")
+    ap.add_argument("--int8", action="store_true",
+                    help="dynamic int8 backbone convolutions (eval-only)")
+    ap.add_argument("--int8-full", action="store_true",
+                    help="int8 backbone AND transformer projections/MLPs")
     ap.add_argument("--image", action="append", default=None,
                     help="grey base image file(s), cycled over the pairs; "
                          "held-out-photos = data/holdout_photos/*.png; "
@@ -217,12 +221,10 @@ def main(argv=None) -> None:
                          "is installed, as on a machine without them)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.int8 or args.int8_full:
-        raise NotImplementedError("--int8 and --int8-full are not ported "
-                                  "yet (ROADMAP queue 1, alternates)")
     hw = (args.height, args.width)
     base, warped, Hs = make_pairs(args.pairs, hw, args.seed, args.image)
-    model = load_model(selfcheck_config(args.bf16, args.pallas), args.ckpt,
+    model = load_model(selfcheck_config(args.bf16, args.pallas, args.int8,
+                                        args.int8_full), args.ckpt,
                        args.device)
     res = run_pairs(model, base, warped, Hs, args.ransac_thr, args.device)
     print(json.dumps(summary(res)))

@@ -1,12 +1,14 @@
 """ResNet-FPN feature backbone.
 
-Counterpart of geoformer_tpu/models/backbone.py (ResNetFPN, the (8, 2)
-ladder): a 1-channel 7x7/2 stem, three 2-block residual stages at 1/2, 1/4
+Counterpart of geoformer_tpu/models/backbone.py. ResNetFPN, the (8, 2)
+ladder: a 1-channel 7x7/2 stem, three 2-block residual stages at 1/2, 1/4
 and 1/8, and a top-down FPN with aligned-corner bilinear upsampling and
-leaky_relu(0.01). BatchNorm runs with running statistics, or with batch
-statistics over all the images given (and updates the running ones) when
-``train`` is set. Inputs and outputs keep the JAX layout (channels last);
-inside, the layers run NCHW.
+leaky_relu(0.01). ResNetFPN_16_4, the (16, 4) ladder: a fourth stage at
+1/16 and the FPN from 1/16 down to 1/4 only. BatchNorm runs with running
+statistics, or with batch statistics over all the images given (and
+updates the running ones) when ``train`` is set. With ``int8`` every
+convolution is an Int8Conv (eval-only: ``train`` then raises). Inputs and
+outputs keep the JAX layout (channels last); inside, the layers run NCHW.
 """
 
 from __future__ import annotations
@@ -17,24 +19,33 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from geoformer_tpu_torch.models.layers import BatchNorm, Conv
+from geoformer_tpu_torch.models.layers import BatchNorm, Conv, Int8Conv
 from geoformer_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+
+
+def _eval_only(int8: bool, train: bool) -> None:
+    if int8 and train:
+        raise ValueError("the int8 backbone is eval-only (round() has no "
+                         "gradient)")
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8: bool = False):
         super().__init__()
-        self.conv1 = Conv(cin, planes, 3, stride, dtype)
+        conv = Int8Conv if int8 else Conv
+        self.int8 = int8
+        self.conv1 = conv(cin, planes, 3, stride, dtype)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = Conv(planes, planes, 3, 1, dtype)
+        self.conv2 = conv(planes, planes, 3, 1, dtype)
         self.bn2 = BatchNorm(planes)
         self.stride = stride
         if stride != 1:
-            self.conv_down = Conv(cin, planes, 1, stride, dtype)
+            self.conv_down = conv(cin, planes, 1, stride, dtype)
             self.bn_down = BatchNorm(planes)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        _eval_only(self.int8, train)
         y = F.relu(self.bn1(self.conv1(x), train))
         y = self.bn2(self.conv2(y), train)
         if self.stride != 1:
@@ -43,34 +54,39 @@ class BasicBlock(nn.Module):
 
 
 class ResNetFPN(nn.Module):
+    """The (8, 2) ladder: coarse at 1/8 (block_dims[2] channels), fine at
+    1/2 (block_dims[0])."""
+
     def __init__(self, initial_dim: int = 128,
                  block_dims: Sequence[int] = (128, 196, 256),
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8: bool = False):
         super().__init__()
         d1, d2, d3 = block_dims
-        self.dtype = dtype
-        self.conv1 = Conv(1, initial_dim, 7, 2, dtype)
+        conv = Int8Conv if int8 else Conv
+        self.int8 = int8
+        self.conv1 = conv(1, initial_dim, 7, 2, dtype)
         self.bn1 = BatchNorm(initial_dim)
-        self.layer1_0 = BasicBlock(initial_dim, d1, 1, dtype)
-        self.layer1_1 = BasicBlock(d1, d1, 1, dtype)
-        self.layer2_0 = BasicBlock(d1, d2, 2, dtype)
-        self.layer2_1 = BasicBlock(d2, d2, 1, dtype)
-        self.layer3_0 = BasicBlock(d2, d3, 2, dtype)
-        self.layer3_1 = BasicBlock(d3, d3, 1, dtype)
-        self.l3_out = Conv(d3, d3, 1, 1, dtype)
-        self.l2_out = Conv(d2, d3, 1, 1, dtype)
-        self.l2_m1 = Conv(d3, d3, 3, 1, dtype)
+        self.layer1_0 = BasicBlock(initial_dim, d1, 1, dtype, int8)
+        self.layer1_1 = BasicBlock(d1, d1, 1, dtype, int8)
+        self.layer2_0 = BasicBlock(d1, d2, 2, dtype, int8)
+        self.layer2_1 = BasicBlock(d2, d2, 1, dtype, int8)
+        self.layer3_0 = BasicBlock(d2, d3, 2, dtype, int8)
+        self.layer3_1 = BasicBlock(d3, d3, 1, dtype, int8)
+        self.l3_out = conv(d3, d3, 1, 1, dtype)
+        self.l2_out = conv(d2, d3, 1, 1, dtype)
+        self.l2_m1 = conv(d3, d3, 3, 1, dtype)
         self.l2_bn = BatchNorm(d3)
-        self.l2_m2 = Conv(d3, d2, 3, 1, dtype)
-        self.l1_out = Conv(d1, d2, 1, 1, dtype)
-        self.l1_m1 = Conv(d2, d2, 3, 1, dtype)
+        self.l2_m2 = conv(d3, d2, 3, 1, dtype)
+        self.l1_out = conv(d1, d2, 1, 1, dtype)
+        self.l1_m1 = conv(d2, d2, 3, 1, dtype)
         self.l1_bn = BatchNorm(d2)
-        self.l1_m2 = Conv(d2, d1, 3, 1, dtype)
+        self.l1_m2 = conv(d2, d1, 3, 1, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, 1] in [0, 1]. Returns (coarse [B, H/8, W/8, d3],
         fine [B, H/2, W/2, d1]), channels last."""
+        _eval_only(self.int8, train)
         x = x.permute(0, 3, 1, 2)
         x0 = F.relu(self.bn1(self.conv1(x), train))
         x1 = self.layer1_1(self.layer1_0(x0, train), train)      # 1/2
@@ -92,11 +108,78 @@ class ResNetFPN(nn.Module):
         return x3_out.permute(0, 2, 3, 1), x1_out.permute(0, 2, 3, 1)
 
 
-def build_backbone(cfg, dtype=torch.float32) -> ResNetFPN:
-    """The (8, 2) ladder; the (16, 4) ladder and int8 convs wait."""
-    if cfg.int8:
-        raise NotImplementedError("int8 backbone is not ported yet")
-    if tuple(cfg.resolution) != (8, 2):
-        raise NotImplementedError(
-            f"resolution ladder {cfg.resolution} is not ported yet")
-    return ResNetFPN(cfg.initial_dim, cfg.block_dims, dtype=dtype)
+class ResNetFPN_16_4(nn.Module):
+    """The (16, 4) ladder: four residual stages, the FPN from 1/16 down to
+    1/4; coarse at 1/16 (block_dims[3] channels), fine at 1/4
+    (block_dims[1])."""
+
+    def __init__(self, initial_dim: int = 128,
+                 block_dims: Sequence[int] = (128, 196, 256, 512),
+                 dtype=torch.float32, int8: bool = False):
+        super().__init__()
+        d1, d2, d3, d4 = block_dims
+        conv = Int8Conv if int8 else Conv
+        self.int8 = int8
+        self.conv1 = conv(1, initial_dim, 7, 2, dtype)
+        self.bn1 = BatchNorm(initial_dim)
+        for li, (cin, cout) in enumerate(((initial_dim, d1), (d1, d2),
+                                          (d2, d3), (d3, d4)), 1):
+            stride = 1 if li == 1 else 2
+            self.add_module(f"layer{li}_0",
+                            BasicBlock(cin, cout, stride, dtype, int8))
+            self.add_module(f"layer{li}_1",
+                            BasicBlock(cout, cout, 1, dtype, int8))
+        self.l4_out = conv(d4, d4, 1, 1, dtype)
+        self.l3_out = conv(d3, d4, 1, 1, dtype)
+        self.l3_m1 = conv(d4, d4, 3, 1, dtype)
+        self.l3_bn = BatchNorm(d4)
+        self.l3_m2 = conv(d4, d3, 3, 1, dtype)
+        self.l2_out = conv(d2, d3, 1, 1, dtype)
+        self.l2_m1 = conv(d3, d3, 3, 1, dtype)
+        self.l2_bn = BatchNorm(d3)
+        self.l2_m2 = conv(d3, d2, 3, 1, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, H, W, 1] in [0, 1]. Returns (coarse [B, H/16, W/16, d4],
+        fine [B, H/4, W/4, d2]), channels last."""
+        _eval_only(self.int8, train)
+        x = F.relu(self.bn1(self.conv1(x.permute(0, 3, 1, 2)), train))
+        feats = []
+        for li in (1, 2, 3, 4):
+            x = getattr(self, f"layer{li}_0")(x, train)
+            x = getattr(self, f"layer{li}_1")(x, train)
+            feats.append(x)
+        _, x2, x3, x4 = feats
+        x4_out = self.l4_out(x4)
+        x3_out = self.l3_out(x3)
+        m3 = self.l3_m1(x3_out + resize_bilinear_align_corners_nchw(
+            x4_out, x3_out.shape[2:]))
+        m3 = F.leaky_relu(self.l3_bn(m3, train), 0.01)
+        x3_out = self.l3_m2(m3)
+        x2_out = self.l2_out(x2)
+        m2 = self.l2_m1(x2_out + resize_bilinear_align_corners_nchw(
+            x3_out, x2_out.shape[2:]))
+        m2 = F.leaky_relu(self.l2_bn(m2, train), 0.01)
+        x2_out = self.l2_m2(m2)
+        return x4_out.permute(0, 2, 3, 1), x2_out.permute(0, 2, 3, 1)
+
+
+def fine_channels(cfg) -> int:
+    """Channels of the backbone's fine map: block_dims[0] on the (8, 2)
+    ladder, block_dims[1] on the (16, 4) one."""
+    return cfg.block_dims[1 if tuple(cfg.resolution) == (16, 4) else 0]
+
+
+def build_backbone(cfg, dtype=torch.float32) -> nn.Module:
+    """The ladder of ``cfg.resolution``: (8, 2) or (16, 4) (with four
+    block_dims); ValueError for any other."""
+    if tuple(cfg.resolution) == (8, 2):
+        return ResNetFPN(cfg.initial_dim, cfg.block_dims, dtype, cfg.int8)
+    if tuple(cfg.resolution) == (16, 4):
+        if len(cfg.block_dims) != 4:
+            raise ValueError(f"the (16, 4) ladder takes 4 block_dims, got "
+                             f"{cfg.block_dims}")
+        return ResNetFPN_16_4(cfg.initial_dim, cfg.block_dims, dtype,
+                              cfg.int8)
+    raise ValueError(f"unsupported resolution ladder {cfg.resolution}")

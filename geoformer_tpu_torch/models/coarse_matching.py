@@ -1,9 +1,12 @@
 """Coarse dual-softmax matching with fixed-capacity match extraction.
 
-Counterpart of geoformer_tpu/models/coarse_matching.py, streaming branch:
-the [B, L0, L1] confidence matrix is never built (ops/streaming_match.py),
-and mutuality is checked on argmax indices. Every image0 cell keeps a slot;
-a top-k pass then compacts the slots to the configured capacity.
+Counterpart of geoformer_tpu/models/coarse_matching.py. The streamed path
+never builds the [B, L0, L1] confidence matrix (ops/streaming_match.py) and
+checks mutuality on argmax indices; the dense path (``streaming=False``,
+and ``extract_matches`` for the sinkhorn matcher) builds it and checks
+mutuality on the max values. Every image0 cell keeps a slot; a top-k pass
+then compacts the slots to the configured capacity (``capacity <= 0``: one
+slot per cell, i_ids the identity).
 """
 
 from __future__ import annotations
@@ -13,13 +16,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from geoformer_tpu_torch.core.capacity import topk_select
+from geoformer_tpu_torch.models.layers import no_grad
+from geoformer_tpu_torch.ops.matching import dual_softmax
 from geoformer_tpu_torch.ops.streaming_match import streaming_match_extract
 
 
 class CoarseMatches(NamedTuple):
     """Fixed-shape coarse match set: i_ids/j_ids [B, M] cell indices into
     the image0/image1 grids, valid [B, M], mconf [B, M]. ``conf`` is the
-    [B, 0, 0] placeholder of the streamed path."""
+    dense [B, L0, L1] confidence of the dense path (differentiable), the
+    [B, 0, 0] placeholder of the streamed one."""
 
     conf: torch.Tensor
     i_ids: torch.Tensor
@@ -56,17 +62,33 @@ def _finalize_ids(row_best, j_ids, mutual, conf00, l1: int, thr: float,
             torch.gather(mconf, 1, idx) * ok)
 
 
+def extract_matches(conf: torch.Tensor, thr: float, capacity: int,
+                    force_one: bool = False, mask0=None, mask1=None
+                    ) -> CoarseMatches:
+    """Threshold and mutual-nearest-neighbour extraction from a dense
+    confidence [B, L0, L1] at a fixed capacity; the (training-time)
+    force-one rule asserts cell (0, 0) in a pair with no match. The ids
+    carry no gradient; ``conf`` keeps its own."""
+    with no_grad():
+        row_best, j_ids = conf.max(dim=2)
+        col_best = conf.max(dim=1).values
+        mutual = row_best == torch.gather(col_best, 1, j_ids)
+        ids = _finalize_ids(row_best, j_ids, mutual, conf[:, 0, 0],
+                            conf.shape[2], thr, capacity, force_one, mask0,
+                            mask1)
+    return CoarseMatches(conf, *ids)
+
+
 def coarse_match(feat_c0, feat_c1, thr: float, temperature: float = 0.1,
                  capacity: int = -1, mask0: Optional[torch.Tensor] = None,
                  mask1: Optional[torch.Tensor] = None,
                  force_one: bool = False,
                  streaming: bool = True) -> CoarseMatches:
-    """Dual-softmax coarse matching and fixed-capacity extraction, streamed.
-    The dense path (streaming=False, the loss's conf matrix) waits for the
-    training slice."""
+    """Dual-softmax coarse matching and fixed-capacity extraction, streamed
+    or (streaming=False) through the dense confidence, which it returns."""
     if not streaming:
-        raise NotImplementedError(
-            "dense coarse matching (return_conf) is not ported yet")
+        conf = dual_softmax(feat_c0, feat_c1, temperature, mask0, mask1)
+        return extract_matches(conf, thr, capacity, force_one, mask0, mask1)
     b, l0, _ = feat_c0.shape
     row_best, j_ids, col_arg, conf00 = streaming_match_extract(
         feat_c0, feat_c1, temperature, mask0, mask1)

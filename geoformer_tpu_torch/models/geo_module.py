@@ -11,7 +11,12 @@ Counterpart of geoformer_tpu/models/geo_module.py:
    the windows (the plain path, which the JAX package takes off the TPU).
 
 Samples without a usable homography keep their features through the cross
-layers; empty KV sets leave features untouched.
+layers; empty KV sets leave features untouched. With ``cfg.int8`` the
+layers' projections and MLPs are Int8Dense. On the box path a cross
+layer then quantizes k_proj's input over the whole source token set (as
+the JAX package's box_window_call), on the gather path over the gathered
+windows (as its window_call): the two paths' scales differ where the
+largest source token lies in no window.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from geoformer_tpu_torch.models.coarse_matching import (
     CoarseMatches,
     match_coords,
 )
+from geoformer_tpu_torch.models.layers import no_grad
 from geoformer_tpu_torch.models.position import add_position_encoding
 from geoformer_tpu_torch.models.transformer import EncoderLayer
 
@@ -112,15 +118,14 @@ class GeoModule(nn.Module):
     def __init__(self, cfg: GeoModuleConfig, d_model: int,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.int8:
-            raise NotImplementedError("int8 GAM is not ported yet")
         self.cfg = cfg
         for li, name in enumerate(cfg.layer_names):
             if name not in ("self", "cross"):
                 raise KeyError(name)
             self.add_module(f"layer_{li}", EncoderLayer(
                 d_model, cfg.nhead, attention="full", mlp_act="tanh",
-                dtype=dtype, use_kernel=cfg.use_pallas and cfg.use_pallas_self))
+                dtype=dtype, use_kernel=cfg.use_pallas and cfg.use_pallas_self,
+                int8=cfg.int8))
 
     def forward(self, cnn_feat0, cnn_feat1, matches: CoarseMatches,
                 scale: int, sample_idx: Optional[torch.Tensor] = None,
@@ -136,7 +141,7 @@ class GeoModule(nn.Module):
         _, h1, w1, _ = cnn_feat1.shape
         # the geometric fit is a hard decision: no gradient flows through
         # it (stop_gradient in the JAX package)
-        with torch.no_grad():
+        with no_grad():
             state = _build_geo_state(matches, (h0, w0), (h1, w1), scale,
                                      cfg, sample_idx, generator,
                                      ransac_noise)

@@ -7,10 +7,15 @@ Counterpart of geoformer_tpu/models/geoformer.py:
     -> coarse match (pass 2) -> fine window gather -> fine LoFTR
     -> fine dual-softmax decode
 
-Both images share one static shape. The forward runs with the streamed
-dual-softmax matcher and is differentiable (the caller of inference wraps
-it in ``torch.no_grad``); the dense confidence output, the sinkhorn
-matcher, sequence parallelism and the int8 paths raise NotImplementedError.
+Both images share one static shape. The forward is differentiable (the
+caller of inference wraps it in ``torch.no_grad``). The coarse matcher is
+the streamed dual softmax, the dense one (``return_conf``, or
+``streaming_extract`` off: the [B, L0, L1] confidences are then returned in
+``matches.conf`` and ``matches1.conf``), or log-domain Sinkhorn with a
+learned dustbin score (``match_type='sinkhorn'``, dense). The int8 flags
+of the config (eval-only) put Int8Conv/Int8Dense in the backbone, the
+coarse and fine stacks and the GAM. Sequence parallelism raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from geoformer_tpu_torch.config import GeoFormerConfig
-from geoformer_tpu_torch.models.backbone import build_backbone
+from geoformer_tpu_torch.models.backbone import build_backbone, fine_channels
 from geoformer_tpu_torch.models.coarse_matching import (
     CoarseMatches,
     coarse_match,
+    extract_matches,
 )
 from geoformer_tpu_torch.models.fine import (
     FineMatches,
@@ -33,9 +39,11 @@ from geoformer_tpu_torch.models.fine import (
     fine_matching,
 )
 from geoformer_tpu_torch.models.geo_module import GeoModule, GeoState
+from geoformer_tpu_torch.models.layers import no_grad
 from geoformer_tpu_torch.models.position import add_position_encoding
 from geoformer_tpu_torch.models.transformer import LocalFeatureTransformer
 from geoformer_tpu_torch.ops.matching import dual_softmax
+from geoformer_tpu_torch.ops.sinkhorn import log_optimal_transport
 
 
 class MatchOutput(NamedTuple):
@@ -52,38 +60,57 @@ class GeoFormer(nn.Module):
     def __init__(self, config: GeoFormerConfig = GeoFormerConfig()):
         super().__init__()
         cfg = config
-        if cfg.match.match_type != "dual_softmax":
-            raise NotImplementedError(
-                f"match_type {cfg.match.match_type!r} is not ported yet")
         if cfg.seq_axis is not None:
-            raise NotImplementedError("sequence parallelism is not ported yet")
-        if cfg.coarse.int8 or cfg.fine.int8:
-            raise NotImplementedError("int8 transformers are not ported yet")
+            raise NotImplementedError(
+                "sequence parallelism is not ported yet (ROADMAP queue 1 "
+                "item 3, --seq-shard)")
         if tuple(cfg.backbone.resolution) != (cfg.coarse_scale,
                                               cfg.fine_scale):
             raise ValueError((cfg.backbone.resolution, cfg.coarse_scale,
                               cfg.fine_scale))
         self.config = cfg
         dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+        self.int8 = (cfg.backbone.int8 or cfg.coarse.int8 or cfg.fine.int8
+                     or cfg.geo.int8)
         self.backbone = build_backbone(cfg.backbone, dtype=dtype)
         self.loftr_coarse = LocalFeatureTransformer(
             cfg.coarse.d_model, cfg.coarse.nhead, cfg.coarse.layer_names,
-            cfg.coarse.attention, dtype=dtype)
+            cfg.coarse.attention, dtype=dtype, int8=cfg.coarse.int8)
         self.geo_module = GeoModule(cfg.geo, cfg.coarse.d_model, dtype=dtype)
         self.fine_preprocess = FinePreprocess(
             cfg.fine.d_model, cfg.coarse.d_model, cfg.fine_match.window_size,
             cfg.fine_match.concat_coarse_feat, dtype=dtype,
-            d_feat_f=cfg.backbone.block_dims[0])
+            d_feat_f=fine_channels(cfg.backbone))
         self.loftr_fine = LocalFeatureTransformer(
             cfg.fine.d_model, cfg.fine.nhead, cfg.fine.layer_names,
-            cfg.fine.attention, dtype=dtype)
+            cfg.fine.attention, dtype=dtype, int8=cfg.fine.int8)
+        if cfg.match.match_type == "sinkhorn":
+            self.bin_score = nn.Parameter(
+                torch.tensor(float(cfg.match.skh_init_bin_score)))
+
+    def _sinkhorn(self, a, c, m0, m1, force_one: bool) -> CoarseMatches:
+        """Sinkhorn coarse matching (dense): similarity in the features'
+        dtype, padding filled with -1e9, conf = exp(Z) without the
+        dustbins."""
+        cfg = self.config.match
+        d = a.shape[-1] ** 0.5
+        sim = torch.einsum("blc,bsc->bls", a / d, c / d) \
+            / cfg.dsmax_temperature
+        if m0 is not None and m1 is not None:
+            vm = m0[:, :, None].bool() & m1[:, None, :].bool()
+            sim = sim.masked_fill(~vm, -1e9)
+        Z = log_optimal_transport(sim, self.bin_score, cfg.skh_iters)
+        conf = torch.exp(Z)[:, :-1, :-1]
+        return extract_matches(conf, cfg.thr, cfg.max_matches, force_one,
+                               m0, m1)
 
     def forward(self, image0, image1, mask0=None, mask1=None,
                 sample_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False,
                 return_feats: bool = False,
-                ransac_noise: Optional[torch.Tensor] = None) -> MatchOutput:
+                ransac_noise: Optional[torch.Tensor] = None,
+                return_conf: bool = False) -> MatchOutput:
         """
         Args:
             image0/1: [B, H, W, 1] grayscale in [0, 1], one shape.
@@ -95,6 +122,9 @@ class GeoFormer(nn.Module):
             train: BatchNorm on batch statistics (updating the running
                 ones) and the force-one-match rule, as in the JAX model.
             return_feats: also return (f0, f1, g0, g1) in ``feats``.
+            return_conf: match through the dense confidences and return
+                them in ``matches.conf`` (second pass) and
+                ``matches1.conf`` (first pass), with their gradients.
         """
         cfg = self.config
         b, H, W, _ = image0.shape
@@ -102,16 +132,26 @@ class GeoFormer(nn.Module):
         m0 = mask0.reshape(b, -1) if mask0 is not None else None
         m1 = mask1.reshape(b, -1) if mask1 is not None else None
 
+        if train and self.int8:
+            raise ValueError("the int8 paths are eval-only (round() has no "
+                             "gradient)")
         force_one = cfg.match.force_one_match or train
+        streaming = cfg.match.streaming_extract and not return_conf
 
         def matcher(a, c):
-            # match ids carry no gradient; no graph is kept for the tiles
-            with torch.no_grad():
+            if cfg.match.match_type == "sinkhorn":
+                return self._sinkhorn(a, c, m0, m1, force_one)
+            if not streaming:
                 return coarse_match(a, c, cfg.match.thr,
                                     cfg.match.dsmax_temperature,
                                     cfg.match.max_matches, m0, m1,
-                                    force_one=force_one,
-                                    streaming=cfg.match.streaming_extract)
+                                    force_one=force_one, streaming=False)
+            # match ids carry no gradient; no graph is kept for the tiles
+            with no_grad():
+                return coarse_match(a, c, cfg.match.thr,
+                                    cfg.match.dsmax_temperature,
+                                    cfg.match.max_matches, m0, m1,
+                                    force_one=force_one)
 
         # named ranges: the stages a profiler trace is read by
         with record_function("backbone"):

@@ -4,16 +4,30 @@ The JAX package keeps parameters in f32 and runs matmuls and convolutions
 in the model's compute dtype (flax ``dtype=``); these layers do the same,
 so one set of weights serves the f32 and the bf16 model. Parameter names
 and layouts are PyTorch's ([out, in] for a dense kernel, OIHW for a
-convolution); weights.py converts the JAX layouts.
+convolution); weights.py converts the JAX layouts. ``Int8Dense`` and
+``Int8Conv`` hold the same parameters as ``Dense`` and ``Conv`` and compute
+in dynamic int8 (ops/quantize.py), so the int8 toggle loads the same
+checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from geoformer_tpu_torch.ops.quantize import int8_conv, int8_dense
+
+
+def no_grad():
+    """torch.no_grad() where autograd is on, and nothing where it is
+    already off: a forward traced under no_grad (the serving export) then
+    holds no grad-mode switches for torch.export to split around."""
+    return (torch.no_grad() if torch.is_grad_enabled()
+            else contextlib.nullcontext())
 
 
 class Dense(nn.Module):
@@ -45,6 +59,23 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
                         stride=self.stride, padding=self.padding)
+
+
+class Int8Dense(Dense):
+    """Bias-free Dense computed in dynamic int8, output in ``dtype``
+    (the JAX package's Int8Dense). Eval-only."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_dense(x, self.weight).to(self.dtype)
+
+
+class Int8Conv(Conv):
+    """Conv computed in dynamic int8, output in ``dtype`` (the JAX
+    package's Int8Conv). Eval-only."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_conv(x, self.weight, self.stride,
+                         self.padding).to(self.dtype)
 
 
 class BatchNorm(nn.Module):

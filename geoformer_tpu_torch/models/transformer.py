@@ -8,7 +8,8 @@ the JAX package, the residual sum is f32 after the first layer.
 
 ``EncoderLayer`` has three call paths over the same parameters: token-set
 attention (``forward``), gathered per-query windows (``window_call``) and
-the gather-free box window (``box_window_call``, kernel K1).
+the gather-free box window (``box_window_call``, kernel K1). With
+``int8`` every projection and MLP layer is an Int8Dense (eval-only).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from geoformer_tpu_torch.models.layers import Dense
+from geoformer_tpu_torch.models.layers import Dense, Int8Dense
 from geoformer_tpu_torch.ops import gam_kernels
 from geoformer_tpu_torch.ops.attention import (
     full_attention,
@@ -32,7 +33,7 @@ from geoformer_tpu_torch.ops.attention import (
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, attention: str = "linear",
                  mlp_act: str = "relu", dtype=torch.float32,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, int8: bool = False):
         super().__init__()
         if attention not in ("linear", "linear_flat", "full"):
             raise ValueError(f"unknown attention {attention!r}")
@@ -41,12 +42,13 @@ class EncoderLayer(nn.Module):
         self.attention = attention
         self.act = F.relu if mlp_act == "relu" else torch.tanh
         self.use_kernel = use_kernel  # K2 for masked-KV full attention
-        self.q_proj = Dense(d_model, d_model, dtype=dtype)
-        self.k_proj = Dense(d_model, d_model, dtype=dtype)
-        self.v_proj = Dense(d_model, d_model, dtype=dtype)
-        self.merge = Dense(d_model, d_model, dtype=dtype)
-        self.mlp0 = Dense(2 * d_model, 2 * d_model, dtype=dtype)
-        self.mlp1 = Dense(2 * d_model, d_model, dtype=dtype)
+        dense = Int8Dense if int8 else Dense
+        self.q_proj = dense(d_model, d_model, dtype=dtype)
+        self.k_proj = dense(d_model, d_model, dtype=dtype)
+        self.v_proj = dense(d_model, d_model, dtype=dtype)
+        self.merge = dense(d_model, d_model, dtype=dtype)
+        self.mlp0 = dense(2 * d_model, 2 * d_model, dtype=dtype)
+        self.mlp1 = dense(2 * d_model, d_model, dtype=dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
@@ -57,7 +59,9 @@ class EncoderLayer(nn.Module):
         b, l = x.shape[0], x.shape[1]
         message = self.merge(message.reshape(b, l, self.d_model))
         message = self.norm1(message.float())
-        y = torch.cat([x, message.to(x.dtype)], dim=-1)
+        # promoted to f32 as jnp.concatenate promotes: a Dense rounds it to
+        # its dtype, an Int8Dense quantizes the unrounded message
+        y = torch.cat([x.float(), message], dim=-1)
         y = self.norm2(self.mlp1(self.act(self.mlp0(y))).float())
         return x + y
 
@@ -111,14 +115,15 @@ class LocalFeatureTransformer(nn.Module):
     """Interleaved self/cross encoder stack over two token sets."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
-                 attention: str = "linear", dtype=torch.float32):
+                 attention: str = "linear", dtype=torch.float32,
+                 int8: bool = False):
         super().__init__()
         self.layer_names = tuple(layer_names)
         for i, name in enumerate(self.layer_names):
             if name not in ("self", "cross"):
                 raise KeyError(name)
             self.add_module(f"layer_{i}", EncoderLayer(
-                d_model, nhead, attention, dtype=dtype))
+                d_model, nhead, attention, dtype=dtype, int8=int8))
 
     def forward(self, feat0, feat1, mask0=None, mask1=None):
         for i, name in enumerate(self.layer_names):

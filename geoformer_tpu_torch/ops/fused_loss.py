@@ -74,7 +74,8 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
     """
     if axis_name is not None:
         raise NotImplementedError(
-            "sequence-parallel streaming loss is not ported yet")
+            "sequence-parallel streaming loss is not ported yet (ROADMAP "
+            "queue 1 item 3, --seq-shard)")
     b, l, cdim = feat0.shape
     s = feat1.shape[1]
     chunk = max(1, min(chunk, l))

@@ -19,7 +19,10 @@ CUDA kernels (K1, K2), on ``cpu`` their plain versions. The JAX bundle
 draws RANSAC's samples from ``jax.random.key(0)`` on every call; the
 port's bakes in one noise tensor for the Gumbel draw, made once at export
 from ``torch.Generator().manual_seed(0)`` (``ransac_noise``), so the same
-images give the same matches on every call and in every process.
+images give the same matches on every call and in every process. An int8
+model (``--int8`` / ``--int8-full``) exports the same way: its
+quantization is part of the program (``aten._int_mm`` nodes), and the
+weights stay the float ones.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ def ransac_noise(cfg, batch: int) -> torch.Tensor:
 class _ServingForward(nn.Module):
     """The serving forward: a plain dict out (OUTPUTS), the fixed RANSAC
     noise. It is traced and run without autograd (the model's own no_grad
-    blocks then leave no grad-mode nodes in the program)."""
+    blocks, models/layers.no_grad, then enter no grad mode at all)."""
 
     def __init__(self, model: nn.Module, noise: torch.Tensor):
         super().__init__()

@@ -8,7 +8,9 @@ port's ``GeoFormer`` state dict and back. The port keeps torch's layouts
 statistics, LayerNorm weight/bias), so a tensor passes unchanged and only
 its name moves; the JAX converter's transposes to flax layouts and the port
 loader's transposes back cancel, and both routes give the same values.
-Only the (8, 2) ResNet-FPN of the released model is covered.
+Both ResNet-FPN ladders are covered: the released model's (8, 2) and the
+(16, 4) one (a fourth stage, recognised by its ``backbone.layer4`` keys;
+the FPN then runs from 1/16 down to 1/4).
 
     convert_state_dict(load_torch_checkpoint("geoformer.ckpt"))
         -> {"backbone.conv1.weight": ..., ...}   (model.load_state_dict)
@@ -36,14 +38,15 @@ _LEAVES = {
 }
 
 
-def _modules(has_down, n_coarse: int, n_geo: int, n_fine: int
-             ) -> List[Tuple[str, str, str]]:
+def _modules(has_down, n_coarse: int, n_geo: int, n_fine: int,
+             stages: int = 3) -> List[Tuple[str, str, str]]:
     """(reference module, port module, kind) of every converted module, in
     the JAX converter's order; ``has_down(li, bi)`` says whether residual
-    block (li, bi) has a downsample branch."""
+    block (li, bi) has a downsample branch; ``stages`` is 3 on the (8, 2)
+    ladder, 4 on the (16, 4) one."""
     mods = [("backbone.conv1", "backbone.conv1", "conv"),
             ("backbone.bn1", "backbone.bn1", "bn")]
-    for li in (1, 2, 3):
+    for li in range(1, stages + 1):
         for bi in (0, 1):
             t, p = f"backbone.layer{li}.{bi}", f"backbone.layer{li}_{bi}"
             mods += [(f"{t}.conv1", f"{p}.conv1", "conv"),
@@ -53,9 +56,10 @@ def _modules(has_down, n_coarse: int, n_geo: int, n_fine: int
             if has_down(li, bi):
                 mods += [(f"{t}.downsample.0", f"{p}.conv_down", "conv"),
                          (f"{t}.downsample.1", f"{p}.bn_down", "bn")]
-    # FPN (reference backbone/resnet_fpn.py:66-82)
-    for lvl, outs in ((3, ()), (2, ("m1", "bn", "m2")), (1, ("m1", "bn",
-                                                             "m2"))):
+    # FPN (reference backbone/resnet_fpn.py:66-82, 145-163): the top
+    # stage's out conv, then two merging levels
+    merge = ("m1", "bn", "m2")
+    for lvl, outs in ((stages, ()), (stages - 1, merge), (stages - 2, merge)):
         mods.append((f"backbone.layer{lvl}_outconv", f"backbone.l{lvl}_out",
                      "conv"))
         for idx, name in zip((0, 1, 3), outs):
@@ -105,13 +109,10 @@ def convert_state_dict(sd: Mapping[str, np.ndarray],
     BatchNorm's ``num_batches_tracked``) are left out."""
     sd = {(k[len(_PREFIX):] if k.startswith(_PREFIX) else k): v
           for k, v in sd.items()}
-    if "backbone.layer4.0.conv1.weight" in sd:
-        raise NotImplementedError(
-            "the (16, 4) ResNet-FPN ladder is not ported yet (ROADMAP "
-            "queue 1 item 8, alternates)")
+    stages = 4 if "backbone.layer4.0.conv1.weight" in sd else 3
     mods = _modules(lambda li, bi: f"backbone.layer{li}.{bi}.downsample.0"
                     ".weight" in sd, n_coarse_layers, n_geo_layers,
-                    n_fine_layers)
+                    n_fine_layers, stages)
     return _copy(sd, {}, mods, forward=True)
 
 
@@ -133,7 +134,8 @@ def to_torch_state_dict(model: Union[nn.Module, Mapping[str, torch.Tensor]],
     mods = _modules(lambda li, bi: f"backbone.layer{li}_{bi}.conv_down"
                     ".weight" in sd, _layer_count(sd, "loftr_coarse"),
                     _layer_count(sd, "geo_module"),
-                    _layer_count(sd, "loftr_fine"))
+                    _layer_count(sd, "loftr_fine"),
+                    4 if "backbone.layer4_0.conv1.weight" in sd else 3)
     return {prefix + k: v for k, v in _copy(sd, {}, mods,
                                             forward=False).items()}
 

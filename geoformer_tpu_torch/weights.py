@@ -9,6 +9,7 @@ whose submodules carry the JAX names:
     conv kernel [kh, kw, in, out] (HWIO) -> weight [out, in, kh, kw] (OIHW)
     dense kernel [in, out]               -> weight [out, in]
     bias                                 -> bias
+    bin_score (the sinkhorn matcher's)   -> bin_score
     BatchNorm / LayerNorm scale          -> weight
     batch_stats mean / var               -> running_mean / running_var
 
@@ -58,6 +59,8 @@ def jax_to_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]
                 out[f"{name}.weight"] = arr
             elif leaf == "bias":
                 out[f"{name}.bias"] = arr
+            elif leaf == "bin_score" and not path:
+                out["bin_score"] = arr
             else:
                 raise KeyError(f"unknown parameter {key} {arr.shape}")
         elif collection == "batch_stats":

@@ -123,5 +123,7 @@ def test_resnet_fpn_bf16_matches_jax():
 @pytest.mark.parametrize("cfg", [BackboneConfig(int8=True),
                                  BackboneConfig(resolution=(16, 4))])
 def test_unported_backbone_options_raise(cfg):
-    with pytest.raises(NotImplementedError):
-        build_backbone(cfg)
+    """What the backbone refuses: training the eval-only int8 ladder, and
+    the (16, 4) ladder with three block_dims (it takes four)."""
+    with pytest.raises(ValueError):
+        build_backbone(cfg)(torch.zeros(1, 32, 32, 1), train=True)

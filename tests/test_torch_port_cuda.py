@@ -639,3 +639,77 @@ def test_mka_kernel_at_the_fire_and_isc_shapes(dev, dtype, case):
     out = gk.masked_kv_attention(q, k, v, mask)
     ref = gk.masked_kv_attention_plain(q, k, v, mask)
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------------- the int8 paths --
+
+INT8_CONVS = {  # name: (N, Cin, H, W, Cout, k, stride); K or N off 8
+    "stem_7x7_s2": (4, 1, 48, 64, 128, 7, 2),
+    "3x3_196": (2, 196, 15, 20, 196, 3, 1),
+    "1x1_s2_down": (2, 128, 30, 40, 196, 1, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INT8_CONVS))
+def test_int8_conv_on_the_card_is_the_exact_product(dev, name):
+    """torch._int_mm on the card (operands zero-padded to its shape rules)
+    gives the exact int32 accumulation (f64 on the card is exact below
+    2^53), and int8_conv the dequantized result the CPU gives."""
+    import torch.nn.functional as F
+
+    from geoformer_tpu_torch.ops import quantize as qz
+
+    nb, cin, h, w, cout, k, s = INT8_CONVS[name]
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((nb, cin, h, w), generator=gen)
+    wt = torch.randn((cout, cin, k, k), generator=gen)
+    xq, _ = qz.quantize_symmetric(x.to(dev))
+    wq, _ = qz.quantize_symmetric(wt.to(dev), dims=(1, 2, 3))
+    got = qz.conv_int32(xq, wq, s, k // 2)
+    exact = F.conv2d(xq.double(), wq.double(), stride=s,
+                     padding=k // 2).permute(0, 2, 3, 1)
+    assert got.dtype == torch.int32 and torch.equal(got.double(), exact)
+    card = qz.int8_conv(x.to(dev), wt.to(dev), s, k // 2).cpu()
+    assert torch.equal(card, qz.int8_conv(x, wt, s, k // 2))
+
+
+@pytest.mark.parametrize("rows", [5, 17, 4800])
+def test_int8_dense_on_the_card_is_the_exact_product(dev, rows):
+    from geoformer_tpu_torch.ops import quantize as qz
+
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((rows, 196), generator=gen)
+    wt = torch.randn((13, 196), generator=gen)
+    xq, _ = qz.quantize_symmetric(x.to(dev))
+    wq, _ = qz.quantize_symmetric(wt.to(dev), dims=(1,))
+    got = qz.int_mm(xq, wq.t())
+    assert torch.equal(got.double(), xq.double() @ wq.double().t())
+    assert torch.equal(qz.int8_dense(x.to(dev), wt.to(dev)).cpu(),
+                       qz.int8_dense(x, wt))
+
+
+def test_int8_full_forward_launches_k1_k2_per_forward(dev):
+    """The --int8-full model at a small size through the kernels: K1 and
+    K2 4 times a forward, finite matches."""
+    import dataclasses
+
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.config import bench_config
+    from geoformer_tpu_torch.models import GeoFormer
+
+    cfg = bench_config(use_bf16=True)
+    r = dataclasses.replace
+    cfg = cfg.replace(backbone=r(cfg.backbone, int8=True),
+                      coarse=r(cfg.coarse, int8=True),
+                      fine=r(cfg.fine, int8=True), geo=r(cfg.geo, int8=True),
+                      match=r(cfg.match, thr=1e-6, max_matches=256))
+    model = weights.random_init(GeoFormer(cfg), 0).to(dev).eval()
+    x = torch.rand((2, 96, 128, 1), generator=torch.Generator().manual_seed(9))
+    gk.reset_launch_counts()
+    with torch.no_grad():
+        out = model(x.to(dev), x.to(dev),
+                    generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["box_window_attention"] == 4
+    assert gk.LAUNCHES["masked_kv_attention"] == 4
+    assert torch.isfinite(out.fine.mkpts1).all()

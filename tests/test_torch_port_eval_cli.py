@@ -81,21 +81,14 @@ def test_infer_saves_what_the_jax_cli_saves(pair, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["infer", "a.png", "b.png", "--int8-full"], "--int8"),
-    (["export", "--out", "b.gfmz", "--int8"], "--int8"),
     (["infer", "a.png", "b.png", "--seq-shard", "2"], "--seq-shard"),
-    (["infer", "a.png", "b.png", "--int8"], "--int8"),
-    (["infer", "a.png", "b.png", "--ckpt", "ladder_16_4.ckpt"], "item 8"),
+    (["infer", "a.png", "b.png", "--int8-full", "--seq-shard", "4"],
+     "item 3"),
 ])
 def test_unported_flags_and_benchmarks_raise(pair, argv, match):
-    """Flags and checkpoints the port does not take yet raise and name
-    their ROADMAP item (a torch checkpoint of the (16, 4) backbone ladder
-    among them)."""
-    torch.save({"state_dict": {
-        "matcher.backbone.layer4.0.conv1.weight": torch.zeros(1)}},
-        pair / "ladder_16_4.ckpt")
-    argv = [str(pair / a) if a.endswith((".png", ".ckpt")) and a[0] in "abl"
-            else a for a in argv]
+    """Flags the port does not take yet raise and name their ROADMAP item:
+    after the int8 flags, only --seq-shard is left."""
+    argv = [str(pair / a) if a.endswith(".png") else a for a in argv]
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv + ["--device", "cpu"])
 

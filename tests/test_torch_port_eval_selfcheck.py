@@ -161,7 +161,7 @@ def test_real_photos_are_the_jax_script_bases():
         assert np.abs(base[i] - ref).max() <= 1 / 255 + 1e-7, p
 
 
-def test_the_script_prints_the_jax_keys(capsys):
+def test_the_script_prints_the_jax_keys(capsys, monkeypatch):
     import json
 
     selfcheck.main(["--pairs", "2", "--height", "64", "--width", "80",
@@ -169,6 +169,21 @@ def test_the_script_prints_the_jax_keys(capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(rec) == JAX_KEYS
     assert rec["pairs"] == 2 and len(rec["auc@1/3/5/10"]) == 4
-    for flag in ("--int8", "--int8-full"):
-        with pytest.raises(NotImplementedError):
-            selfcheck.main([flag, "--device", "cpu"])
+    # the int8 flags give the int8 model (its forward and fits:
+    # tests/test_torch_port_int8_model.py)
+    seen = {}
+
+    def run_pairs(model, base, *args):
+        seen["cfg"] = model.config
+        return dict(dists=[0.5] * len(base), n_matches=[9] * len(base),
+                    match_s=0.0, fit_s=0.0)
+
+    monkeypatch.setattr(selfcheck, "run_pairs", run_pairs)
+    for flag, full in (("--int8", False), ("--int8-full", True)):
+        selfcheck.main([flag, "--pairs", "2", "--height", "64", "--width",
+                        "80", "--device", "cpu", "--ckpt", str(CKPT)])
+        rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert set(rec) == JAX_KEYS and rec["pairs"] == 2
+        c = seen["cfg"]
+        assert c.backbone.int8 and (c.coarse.int8, c.fine.int8,
+                                    c.geo.int8) == (full,) * 3

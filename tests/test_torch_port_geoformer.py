@@ -237,15 +237,16 @@ def test_batched_matcher_pads_and_returns_unpadded_matches(run):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("match", "sinkhorn"), ("seq_axis", "seq"), ("coarse", "int8")])
+    ("seq_axis", "seq"), ("coarse", "int8")])
 def test_unported_options_raise(run, field, value):
+    """Sequence parallelism is not ported (it names its ROADMAP item); the
+    int8 paths are eval-only, so a train-mode forward raises."""
     cfg = port_config(run["cfg"])
-    if field == "match":
-        cfg = cfg.replace(match=dataclasses.replace(cfg.match,
-                                                    match_type=value))
-    elif field == "seq_axis":
-        cfg = cfg.replace(seq_axis=value)
-    else:
-        cfg = cfg.replace(coarse=dataclasses.replace(cfg.coarse, int8=True))
-    with pytest.raises(NotImplementedError):
-        GeoFormer(cfg)
+    if field == "seq_axis":
+        with pytest.raises(NotImplementedError, match="item 3"):
+            GeoFormer(cfg.replace(seq_axis=value))
+        return
+    model = GeoFormer(cfg.replace(coarse=dataclasses.replace(cfg.coarse,
+                                                             int8=True)))
+    with pytest.raises(ValueError, match="eval-only"):
+        model(t(run["img0"]), t(run["img1"]), train=True)

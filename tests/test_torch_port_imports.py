@@ -129,3 +129,12 @@ def test_kernel_sources_and_hash():
     for name in cuda_lib.SIGNATURES:
         assert sum(f'"C" int {name}(' in p.read_text()
                    for p in cuda_lib.CSRC_DIR.glob("*.cu")) == 1, name
+
+
+def test_the_int8_and_alternate_modules_are_walked():
+    """The modules of the int8 paths and the forward's alternates are
+    among the files the AST walk and the import run cover."""
+    new = {"ops/quantize.py", "ops/sinkhorn.py", "ops/nms.py",
+           "eval/nn_matching.py", "models/loftr.py"}
+    walked = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert new <= walked, new - walked

@@ -131,9 +131,16 @@ def test_coarse_match_matches_jax(capacity, masked, force_one):
 
 
 def test_dense_coarse_match_is_not_ported_yet():
+    """The dense path (streaming=False) is ported: it gives JAX's dense
+    matches and returns the confidence it extracted them from."""
     f0, f1 = _feats(3)
-    with pytest.raises(NotImplementedError):
-        tcm.coarse_match(t(f0), t(f1), 0.2, streaming=False)
+    ref = jcm.coarse_match(jnp.asarray(f0), jnp.asarray(f1), 0.2,
+                           streaming=False)
+    got = tcm.coarse_match(t(f0), t(f1), 0.2, streaming=False)
+    assert_close(got.conf, ref.conf, 1e-4, 1e-6, "conf")
+    np.testing.assert_array_equal(n(got.valid), np.asarray(ref.valid))
+    v = np.asarray(ref.valid)
+    np.testing.assert_array_equal(n(got.j_ids)[v], np.asarray(ref.j_ids)[v])
 
 
 @pytest.mark.parametrize("masked", [False, True])

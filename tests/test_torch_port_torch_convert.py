@@ -102,10 +102,13 @@ def test_unused_keys_are_left_out_and_missing_ones_raise(trained):
 
 
 def test_the_16_4_ladder_raises_with_its_item(trained):
+    """A layer4 key selects the (16, 4) ladder; an (8, 2) state dict with
+    one stray layer4 weight then raises, naming the first missing item of
+    that ladder."""
     _, model = trained
     sd = tc.to_torch_state_dict(model)
     sd["matcher.backbone.layer4.0.conv1.weight"] = np.zeros((1,), np.float32)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(KeyError, match="backbone.layer4.0.conv2.weight"):
         tc.convert_state_dict(sd)
 
 

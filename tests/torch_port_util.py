@@ -89,13 +89,15 @@ def assert_close(actual, expected, rtol: float, atol: float, what=""):
 
 
 def jax_forward_and_draws(cfg, variables, img0, img1, key, mask0=None,
-                          mask1=None, train: bool = False):
+                          mask1=None, train: bool = False,
+                          intermediates: bool = False):
     """The JAX GeoFormer.apply output of a batch and the GAM's RANSAC
     samples [B, iters, 4] that this forward drew (the key it takes with
     make_rng("ransac"), split per row as _build_geo_state splits it, then
     ransac.py:110-112 on the first-pass matches), for injection into the
     port. ``train`` runs the train-mode forward (batch statistics, the
-    force-one-match rule), as a train step does."""
+    force-one-match rule), as a train step does. ``intermediates`` also
+    returns the forward's captured intermediates, third."""
     import jax
     import jax.numpy as jnp
 
@@ -128,6 +130,8 @@ def jax_forward_and_draws(cfg, variables, img0, img1, key, mask0=None,
 
     sample_idx = np.asarray(jax.vmap(draw)(jax.random.split(rkey, b),
                                            matches1.valid))
+    if intermediates:
+        return out, sample_idx, st["intermediates"]
     return out, sample_idx
 
 
