@@ -142,6 +142,22 @@ Phases, each printing its own lines and its seconds:
    120x160 in f32, the sinkhorn and `--int8-full` forwards through the
    kernels against their plain versions; the (16, 4) ladder and plain
    LoFTR at 480x640, timed.
+15. data parallelism and the engine: (a) run_training at the headline
+   recipe (480x640, f32, TF32 off, max_matches 512, 256 hypotheses, 512
+   inliers, K1-K5) at a global batch of 4 from seed 66 for 2 steps, on two
+   ranks of 2 pairs on the one card (spawned, gloo on CUDA tensors: NCCL
+   refuses two ranks on one device) against one process at batch 4: each
+   step's loss and grad norm within 1e-3, the update within the train-step
+   test's relative-L2 bars, the BatchNorm statistics within 1e-4 and
+   equal on both ranks, K1-K5 4 times a step on each rank, rank 0 alone
+   logging; the ms a step, the gradient all-reduce's ms and the peak
+   memory of each rank; (b) `cli train --pallas` under `torchrun
+   --nproc-per-node 1` (NCCL, world size 1) for 2 steps at 120x160; (c)
+   ba_solve (plain and Huber), ba_solve_cg, optimize_pose_graph and
+   align_umeyama / ate_rmse on CUDA tensors against the same calls on the
+   CPU, and ba_solve_sharded / ba_solve_points_sharded on two gloo ranks
+   on the card against one process, compared where the problem fixes the
+   solution (camera 0 alone frozen leaves the scale free).
 
 Phases 10, 12 and 13 time K1 on their own inputs beside its plain
 version and the library call (SDPA under the dense box mask); phase 12
@@ -3681,6 +3697,418 @@ def phase_int8_alternates(device, phase3_ms):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 15 ------
+
+# (a): the headline recipe at a global batch of 4, two ranks of 2 on the
+# one card over gloo, against one process at batch 4; warm-up 1 step, so
+# that step 2 moves the weights at the recipe's full LR (step 1's LR is 0)
+DP = dict(world=2, batch=4, steps=2, seed=TRAIN_SEED, bank=8, warmup=1)
+DP_SCALAR_REL = 1e-3          # loss and grad_norm of each step
+DP_UPDATE = dict(rel_l2=0.1, off_share=0.01)   # tests/test_torch_port_train_step.py
+DP_STATS = dict(rtol=1e-4, atol=1e-5)          # BatchNorm running statistics
+# (b): cli train under torchrun, one rank, NCCL
+DP_CLI = dict(hw=(120, 160), batch=2, steps=2, bank=4)
+# (c): the engine; the BA scene of tests/test_engine.py
+BA_SCENE = dict(C=6, P=80, seed=1)
+BA_ITERS = 10
+SHARDED_SCENE = dict(C=4, P=64, seed=5)
+SHARDED_ITERS = 8
+
+
+def _dp_kwargs(ckpt_dir, model_cfg, image_hw) -> dict:
+    return dict(steps=DP["steps"], batch_size=DP["batch"],
+                image_hw=image_hw, ckpt_dir=str(ckpt_dir), log_every=1,
+                seed=DP["seed"], model_cfg=model_cfg, bank_size=DP["bank"],
+                warmup_steps=DP["warmup"])
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_run(kw, device) -> dict:
+    """run_training on ``device`` in this process's group (if any): each
+    train step's synchronized ms and launches, the gradient all-reduce's
+    synchronized ms, the count of all-reduces, the peak memory (on the
+    card), what it printed and the state after it (host arrays)."""
+    import io
+
+    import torch.distributed as dist
+
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.train import loop as loop_mod
+
+    ar = {"ms": [], "calls": 0}
+    flat, all_reduce = mesh.all_sum_flat, dist.all_reduce
+
+    def timed_flat(tensors):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = flat(tensors)
+        _sync(device)
+        ar["ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def counted(*args, **kwargs):
+        ar["calls"] += 1
+        return all_reduce(*args, **kwargs)
+
+    mesh.all_sum_flat, dist.all_reduce = timed_flat, counted
+    gk.reset_launch_counts()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    try:
+        with _instrumented(loop_mod, gk) as rec, \
+                contextlib.redirect_stdout(buf):
+            state = loop_mod.run_training(**kw, device=device)
+        _sync(device)
+    finally:
+        mesh.all_sum_flat, dist.all_reduce = flat, all_reduce
+    return dict(steps=rec["train"], all_reduce_ms=ar["ms"],
+                all_reduce_calls=ar["calls"], printed=buf.getvalue(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30
+                if cuda else 0.0,
+                state={k: v.cpu().numpy() for k, v in
+                       state.model.state_dict().items()})
+
+
+def _dp_rank(rank, kw, device, hosts):
+    """Phase 15 on one rank (both ranks on ``device``), TF32 off: (a)'s
+    training run, then (c)'s two sharded BA solves of ``hosts`` (one group
+    for both saves the ranks' second start-up)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    out = _dp_run(kw, device)
+    out["sharded"] = _sharded_solves(hosts, device)
+    return out
+
+
+def _update_gap(got: dict, ref: dict, before: dict, lr: float):
+    """The largest relative L2 gap between two runs' updates of a
+    parameter tensor, and the largest share of its elements whose updates
+    differ by more than lr / 10; the BatchNorm statistics' largest gap
+    beyond DP_STATS (0 when within)."""
+    rel, off, stats = 0.0, 0.0, 0.0
+    for name, r in ref.items():
+        g, b = got[name], before[name]
+        if "running" in name:
+            excess = np.abs(g - r) - (DP_STATS["atol"]
+                                      + DP_STATS["rtol"] * np.abs(r))
+            stats = max(stats, float(excess.max()))
+            continue
+        d_ref, d_got = r - b, g - b
+        if np.linalg.norm(d_ref) == 0:
+            continue
+        rel = max(rel, float(np.linalg.norm(d_got - d_ref)
+                             / np.linalg.norm(d_ref)))
+        off = max(off, float((np.abs(d_got - d_ref) > lr / 10).mean()))
+    return rel, off, max(stats, 0.0)
+
+
+def _dp_two_ranks(device, tmp, model_cfg, image_hw, hosts):
+    """(a): two gloo ranks on the one card against one process; returns
+    the ranks' sharded BA solutions of ``hosts`` and the group's
+    seconds."""
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.models import GeoFormer
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    before = {k: v.numpy() for k, v in weights.random_init(
+        GeoFormer(model_cfg), DP["seed"]).state_dict().items()}
+    one = _dp_run(_dp_kwargs(tmp / "one", model_cfg, image_hw), device)
+    ref_lines = [json.loads(ln) for ln in
+                 (tmp / "one" / "metrics.jsonl").read_text().splitlines()]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh.launch(_dp_rank, DP["world"], (
+        _dp_kwargs(tmp / "two", model_cfg, image_hw), str(device), hosts),
+        backend="gloo", timeout=900, threads=4, init_dir=str(tmp))
+    launch_s = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in
+             (tmp / "two" / "metrics.jsonl").read_text().splitlines()]
+    train_k = {name: 4 for name in gk.LAUNCHES}
+    for r, res in enumerate(ranks):
+        _per_call_launches(res["steps"], f"rank {r} train", train_k,
+                           DP["steps"])
+    check(ranks[1]["printed"] == "", "rank 1 printed: rank 0 alone logs")
+    check([m["step"] for m in lines] == [1, 2], f"metrics steps {lines}")
+    gaps = {}
+    for m, ref in zip(lines, ref_lines):
+        for k in ("loss", "grad_norm"):
+            gaps[f"{k}@{m['step']}"] = abs(m[k] - ref[k]) / abs(ref[k])
+    rel, off, stats = _update_gap(ranks[0]["state"], one["state"], before,
+                                  lines[-1]["lr"])
+    same = all(np.array_equal(ranks[0]["state"][k], ranks[1]["state"][k])
+               for k in ranks[0]["state"])
+    ms = [[round(t, 1) for t, _ in res["steps"]] for res in ranks]
+    log("data_parallel_ranks", world=DP["world"], backend="gloo",
+        global_batch=DP["batch"], hw=image_hw, launch_s=f"{launch_s:.1f}",
+        ms_per_step_rank=ms,
+        one_process_ms_per_step=[round(t, 1) for t, _ in one["steps"]],
+        all_reduce_ms=[[round(t, 2) for t in res["all_reduce_ms"]]
+                       for res in ranks],
+        all_reduces_per_step=[res["all_reduce_calls"] // DP["steps"]
+                              for res in ranks],
+        peak_gib_rank=[round(res["peak_gib"], 2) for res in ranks],
+        one_process_peak_gib=f"{one['peak_gib']:.2f}",
+        loss=[m["loss"] for m in lines],
+        one_process_loss=[m["loss"] for m in ref_lines],
+        grad_norm=[m["grad_norm"] for m in lines],
+        one_process_grad_norm=[m["grad_norm"] for m in ref_lines],
+        num_inliers=[m["num_inliers"] for m in lines],
+        one_process_num_inliers=[m["num_inliers"] for m in ref_lines],
+        scalar_rel_gap={k: f"{v:.2e}" for k, v in gaps.items()},
+        update_rel_l2=f"{rel:.3e}", update_off_share=f"{off:.4f}",
+        batch_stats_excess=f"{stats:.2e}", ranks_equal=same,
+        launches_per_step_rank=[res["steps"][0][1] for res in ranks])
+    check(all(v <= DP_SCALAR_REL for v in gaps.values()),
+          f"two ranks' loss/grad_norm against one process: {gaps}")
+    check(rel < DP_UPDATE["rel_l2"] and off < DP_UPDATE["off_share"],
+          f"two ranks' update against one process: rel L2 {rel}, "
+          f"off share {off}")
+    check(stats == 0.0, f"BatchNorm statistics off by {stats} beyond "
+          f"{DP_STATS}")
+    check(same, "the two ranks' states differ")
+    return [res["sharded"] for res in ranks], launch_s
+
+
+def _dp_torchrun(device, tmp):
+    """(b): cli train under torchrun, one rank on the card, NCCL (gloo for
+    the CPU)."""
+    out = tmp / "torchrun"
+    h, w = DP_CLI["hw"]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "geoformer_tpu_torch.cli", "train",
+         "--pallas", "--steps", str(DP_CLI["steps"]), "--batch",
+         str(DP_CLI["batch"]), "--height", str(h), "--width", str(w),
+         "--bank-size", str(DP_CLI["bank"]), "--log-every", "1", "--out",
+         str(out), "--device", device.type],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "NCCL_DEBUG": "VERSION"})
+    seconds = time.perf_counter() - t0
+    text = run.stdout + run.stderr
+    nccl = [ln.strip() for ln in text.splitlines() if "NCCL version" in ln]
+    check(run.returncode == 0, f"torchrun cli train failed:\n{text[-3000:]}")
+    lines = [json.loads(ln) for ln in
+             (out / "metrics.jsonl").read_text().splitlines()]
+    log("data_parallel_torchrun", seconds=f"{seconds:.1f}", hw=DP_CLI["hw"],
+        batch=DP_CLI["batch"], steps=[m["step"] for m in lines],
+        loss=[m["loss"] for m in lines], nccl=nccl[:1],
+        files=sorted(p.name for p in out.iterdir()))
+    check([m["step"] for m in lines] == [1, 2]
+          and all(math.isfinite(m["loss"]) for m in lines),
+          f"torchrun metrics {lines}")
+    check(bool(nccl) or device.type != "cuda",
+          "NCCL did not start under torchrun")
+    check((out / "params_final.npz").is_file(), "no params_final.npz")
+
+
+def _ba_scene(C: int, P: int, seed: int, by_point_shards: int = 0) -> dict:
+    """tests/test_engine.py's BA scene as host arrays of a BAProblem: C
+    cameras along x, P points 6-10 in front, every point seen by every
+    camera, the poses (but camera 0's) perturbed by 0.02 and the points by
+    0.05; with ``by_point_shards``, the observations grouped by point into
+    that many equal slices, obs_pt local to its slice."""
+    from geoformer_tpu_torch.engine.lie import se3_exp
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[300.0, 0, 160], [0, 300, 120], [0, 0, 1]], np.float32)
+    pts = rng.uniform([-2, -2, 6], [2, 2, 10], (P, 3)).astype(np.float32)
+    xi = np.zeros((C, 6), np.float32)
+    xi[:, 3] = 0.3 * np.arange(C)
+    xi[:, 1] = 0.02 * np.arange(C)
+    cams = se3_exp(torch.from_numpy(xi)).numpy()
+    pc = np.einsum("cij,pj->cpi", cams[:, :3, :3], pts) + cams[:, None, :3, 3]
+    uv = ((pc / pc[..., 2:]) @ K.T)[..., :2].reshape(-1, 2)
+    obs_cam = np.repeat(np.arange(C), P)
+    obs_pt = np.tile(np.arange(P), C)
+    dxi = rng.normal(0, 0.02, (C, 6)).astype(np.float32)
+    dxi[0] = 0
+    cams0 = se3_exp(torch.from_numpy(dxi)).numpy() @ cams
+    pts0 = pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)
+    if by_point_shards:
+        order = np.argsort(obs_pt, kind="stable")
+        obs_cam, obs_pt, uv = obs_cam[order], obs_pt[order], uv[order]
+        obs_pt = obs_pt % (P // by_point_shards)
+    return dict(cams=cams0.astype(np.float32), points=pts0, K=K,
+                obs_cam=obs_cam, obs_pt=obs_pt, obs_uv=uv.astype(np.float32),
+                obs_valid=np.ones(C * P, bool))
+
+
+def _ba_problem(host: dict, device):
+    from geoformer_tpu_torch.engine.ba import BAProblem
+
+    return BAProblem(**{k: torch.from_numpy(np.asarray(v)).to(device)
+                        for k, v in host.items()})
+
+
+def _solution_gap(got, ref) -> dict:
+    """Two BA solutions compared where the problem fixes them (camera 0
+    alone is frozen, so the scale along the baseline is free): the first
+    costs' relative gap, the final costs, the ATE of the camera centres
+    after a similarity alignment, and the raw cameras' largest gap."""
+    from geoformer_tpu_torch.engine import trajectory as tr
+
+    cams, _, hist = (torch.as_tensor(x).cpu() for x in got)
+    rcams, _, rhist = (torch.as_tensor(x).cpu() for x in ref)
+    return dict(first_rel=float(abs(hist[0] - rhist[0]) / rhist[0]),
+                final=max(float(hist[-1]), float(rhist[-1])),
+                ate=float(tr.ate_rmse(tr.camera_centers(cams),
+                                      tr.camera_centers(rcams))),
+                cams=float((cams - rcams).abs().max()))
+
+
+# the gaps tests/test_torch_port_cuda.py allows between two BA solutions
+BA_BARS = dict(first_rel=5e-2, final=1e-3, ate=1e-3, cams=2e-2)
+
+
+def _check_solution(what: str, gap: dict) -> None:
+    check(all(gap[k] < bar for k, bar in BA_BARS.items()),
+          f"{what}: {gap} against {BA_BARS}")
+
+
+def _sharded_hosts():
+    """(c)'s scene for the sharded solvers, as ba_solve_sharded takes it
+    and grouped by point into two slices for ba_solve_points_sharded."""
+    return [_ba_scene(**SHARDED_SCENE),
+            _ba_scene(**SHARDED_SCENE, by_point_shards=2)]
+
+
+def _sharded_solves(hosts, device):
+    """This rank's ba_solve_sharded and ba_solve_points_sharded of
+    ``hosts`` on ``device`` (host arrays)."""
+    from geoformer_tpu_torch.engine import ba
+
+    out = []
+    for fn, host in ((ba.ba_solve_sharded, hosts[0]),
+                     (ba.ba_solve_points_sharded, hosts[1])):
+        got = fn(_ba_problem(host, device), iters=SHARDED_ITERS)
+        out.append(tuple(x.cpu().numpy() for x in got))
+    return out
+
+
+def _pose_graph_case():
+    from geoformer_tpu_torch.engine.lie import se3_exp
+
+    rng = np.random.default_rng(3)
+    step = se3_exp(torch.tensor([0, 0, 0.1, 0.5, 0.05, 0.0]))
+    gt = [torch.eye(4)]
+    for _ in range(7):
+        gt.append(step @ gt[-1])
+    noise = se3_exp(torch.from_numpy(rng.normal(0, 0.01, (7, 6))
+                                     .astype(np.float32)))
+    eT = [noise[i] @ gt[i + 1] @ torch.linalg.inv(gt[i]) for i in range(7)]
+    eT.append(gt[7] @ torch.linalg.inv(gt[0]))
+    init = [torch.eye(4)]
+    for i in range(7):
+        init.append(eT[i] @ init[i])
+    return dict(poses=torch.stack(init), edge_i=torch.tensor(
+        list(range(7)) + [0]), edge_j=torch.tensor(list(range(1, 8)) + [7]),
+        edge_T=torch.stack(eT), edge_valid=torch.ones(8, dtype=torch.bool),
+        edge_weight=torch.tensor([1.0] * 7 + [10.0])), torch.stack(gt)
+
+
+def _dp_engine(device, sharded, launch_s):
+    """(c): the engine's solvers on the card against the CPU, and the two
+    sharded BA solvers of (a)'s ranks (``sharded``, by rank) against one
+    process."""
+    from geoformer_tpu_torch.engine import ba
+    from geoformer_tpu_torch.engine import pose_graph as pg
+    from geoformer_tpu_torch.engine import trajectory as tr
+    from geoformer_tpu_torch.engine.lie import se3_exp
+
+    host = _ba_scene(**BA_SCENE)
+    for name, fn, kw in (("ba_solve", ba.ba_solve, dict(iters=BA_ITERS)),
+                         ("ba_solve_huber", ba.ba_solve,
+                          dict(iters=BA_ITERS, huber_delta=1.0)),
+                         ("ba_solve_cg", ba.ba_solve_cg,
+                          dict(iters=6, cg_iters=16))):
+        fn(_ba_problem(host, device), **kw)           # warm-up
+        _sync(device)
+        t0 = time.perf_counter()
+        got = fn(_ba_problem(host, device), **kw)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = fn(_ba_problem(host, "cpu"), **kw)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        gap = _solution_gap(got, ref)
+        log("engine", solver=name, scene=BA_SCENE, ms=f"{ms:.1f}",
+            host_cpu_ms=f"{cpu_ms:.1f}", rmse=f"{float(got[2][-1]):.3e}",
+            **{k: f"{v:.2e}" for k, v in gap.items()})
+        _check_solution(f"{name} on the card against the CPU", gap)
+    arrays, gt = _pose_graph_case()
+    got, hist = pg.optimize_pose_graph(pg.PoseGraph(
+        **{k: v.to(device) for k, v in arrays.items()}), iters=10)
+    ref, ref_hist = pg.optimize_pose_graph(pg.PoseGraph(**arrays), iters=10)
+    pose_gap = float((got.cpu() - ref).abs().max())
+    ate = float(tr.ate_rmse(tr.camera_centers(got.cpu()),
+                            tr.camera_centers(gt), align=False))
+    est = torch.from_numpy(np.random.default_rng(4).normal(size=(30, 3))
+                           .astype(np.float32))
+    rot = se3_exp(torch.tensor([0.1, 0.2, 0.7, 0.0, 0.0, 0.0]))[:3, :3]
+    gt_c = 2 * est @ rot.T + torch.tensor([1.0, 2.0, 3.0])
+    sim = [float((a.cpu() - b).abs().max()) for a, b in zip(
+        tr.align_umeyama(est.to(device), gt_c.to(device)),
+        tr.align_umeyama(est, gt_c))]
+    ate_card = float(tr.ate_rmse(est.to(device), gt_c.to(device)))
+    log("engine", solver="optimize_pose_graph", pose_gap=f"{pose_gap:.2e}",
+        residual=[f"{float(x):.3e}" for x in hist[[0, -1]]],
+        cpu_residual=[f"{float(x):.3e}" for x in ref_hist[[0, -1]]],
+        ate_vs_gt=f"{ate:.4f}", umeyama_gap=[f"{x:.1e}" for x in sim],
+        umeyama_ate=f"{ate_card:.2e}")
+    check(pose_gap < 2e-4 and ate < 0.05, f"pose graph on the card: gap "
+          f"{pose_gap}, ATE {ate}")
+    check(max(sim) < 1e-4 and ate_card < 1e-4, f"Umeyama on the card: {sim}"
+          f", ATE {ate_card}")
+    hosts = _sharded_hosts()
+    refs = (ba.ba_solve(_ba_problem(hosts[0], device), iters=SHARDED_ITERS),
+            ba.ba_solve_points_sharded(_ba_problem(
+                _ba_scene(**SHARDED_SCENE, by_point_shards=1), device),
+                iters=SHARDED_ITERS))
+    for name, got, ref, other in zip(
+            ("ba_solve_sharded", "ba_solve_points_sharded"), sharded[0],
+            refs, sharded[1]):
+        gap = _solution_gap(got, ref)
+        alike = all(np.array_equal(a, b) for a, b in zip(got, other))
+        log("engine", solver=name, world=2, backend="gloo",
+            scene=SHARDED_SCENE, group_s=f"{launch_s:.1f}", ranks_equal=alike,
+            rmse=f"{float(got[2][-1]):.3e}",
+            **{k: f"{v:.2e}" for k, v in gap.items()})
+        check(alike, f"{name}: the two ranks' solutions differ")
+        _check_solution(f"{name} on two ranks against one process", gap)
+
+
+def phase_data_parallel(device):
+    """(a) run_training at the headline recipe, global batch 4 from seed
+    66, on two gloo ranks of 2 pairs on the one card, against one process
+    at batch 4; (b) `cli train` under torchrun, one rank, NCCL; (c) the
+    engine's solvers on the card against the CPU, and the sharded BA
+    solvers on two gloo ranks against one process."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sharded, group_s = _dp_two_ranks(device, tmp, headline_config(),
+                                         TRAIN_HW, _sharded_hosts())
+        _dp_torchrun(device, tmp)
+        _dp_engine(device, sharded, group_s)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -3732,6 +4160,7 @@ def main() -> int:
     timed("depth", phase_depth, device)
     timed("localize_slam", phase_localize_slam, device)
     timed("int8_alternates", phase_int8_alternates, device, ms_per_pair)
+    timed("data_parallel", phase_data_parallel, device)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

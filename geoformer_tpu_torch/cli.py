@@ -25,6 +25,11 @@ and defaults, plus ``--device`` (default ``cuda``):
     python -m geoformer_tpu_torch.cli slam --images <dir> \\
         [--glob 'frame_*.png'] [--loop-stride 5] [--gt gt.npz] --ckpt ...
 
+``train`` and ``train-depth`` are data-parallel under torchrun
+(``torchrun --nproc-per-node N -m geoformer_tpu_torch.cli train ...``):
+each rank runs on ``cuda:$LOCAL_RANK`` with NCCL (gloo with ``--device
+cpu``), ``--batch`` is the global batch (core/mesh.py, train/loop.py).
+
 Checkpoints are the JAX package's ``.npz`` files or the reference's torch
 ``.ckpt``/``.pth``/``.pt`` files; with no ``--ckpt`` the weights are random
 (seed 0). Flags and benchmarks that are not ported yet raise
@@ -99,6 +104,7 @@ def cmd_train(args):
         GeoModuleConfig,
         MatchConfig,
     )
+    from geoformer_tpu_torch.core.mesh import process_group_from_env
     from geoformer_tpu_torch.train.loop import run_training
 
     model_cfg = GeoFormerConfig(
@@ -108,28 +114,29 @@ def cmd_train(args):
                             use_pallas=args.pallas),
         use_bf16=args.bf16,
     )
-    run_training(
-        image_dir=args.data,
-        steps=args.steps,
-        batch_size=args.batch,
-        image_hw=(args.height, args.width),
-        ckpt_dir=args.out,
-        log_every=args.log_every,
-        seed=args.seed,
-        model_cfg=model_cfg,
-        lr=args.lr,
-        warmup_steps=args.warmup,
-        resume=args.resume,
-        val_every=args.val_every,
-        tensorboard=args.tensorboard,
-        texture_style=args.texture_style,
-        image_fraction=args.data_mix,
-        log_figures=args.log_figures,
-        sensor_aug=args.sensor_aug,
-        bank_size=args.bank_size,
-        bank_refresh=args.bank_refresh,
-        device=args.device,
-    )
+    with process_group_from_env(args.device) as device:
+        run_training(
+            image_dir=args.data,
+            steps=args.steps,
+            batch_size=args.batch,
+            image_hw=(args.height, args.width),
+            ckpt_dir=args.out,
+            log_every=args.log_every,
+            seed=args.seed,
+            model_cfg=model_cfg,
+            lr=args.lr,
+            warmup_steps=args.warmup,
+            resume=args.resume,
+            val_every=args.val_every,
+            tensorboard=args.tensorboard,
+            texture_style=args.texture_style,
+            image_fraction=args.data_mix,
+            log_figures=args.log_figures,
+            sensor_aug=args.sensor_aug,
+            bank_size=args.bank_size,
+            bank_refresh=args.bank_refresh,
+            device=device,
+        )
 
 
 def cmd_train_depth(args):
@@ -138,6 +145,7 @@ def cmd_train_depth(args):
         GeoModuleConfig,
         MatchConfig,
     )
+    from geoformer_tpu_torch.core.mesh import process_group_from_env
     from geoformer_tpu_torch.train.depth_loop import run_depth_training
 
     model_cfg = GeoFormerConfig(
@@ -147,25 +155,26 @@ def cmd_train_depth(args):
                             use_pallas=args.pallas),
         use_bf16=args.bf16,
     )
-    run_depth_training(
-        npz_dir=args.npz_dir,
-        root_dir=args.root,
-        val_npz_dir=args.val_npz_dir,
-        steps=args.steps,
-        batch_size=args.batch,
-        image_hw=(args.imsize, args.imsize),
-        ckpt_dir=args.out,
-        log_every=args.log_every,
-        val_every=args.val_every,
-        n_val_batches=args.n_val_batches,
-        seed=args.seed,
-        model_cfg=model_cfg,
-        lr=args.lr,
-        resume=args.resume,
-        min_overlap_score=args.min_overlap,
-        depth_pad=args.depth_pad,
-        device=args.device,
-    )
+    with process_group_from_env(args.device) as device:
+        run_depth_training(
+            npz_dir=args.npz_dir,
+            root_dir=args.root,
+            val_npz_dir=args.val_npz_dir,
+            steps=args.steps,
+            batch_size=args.batch,
+            image_hw=(args.imsize, args.imsize),
+            ckpt_dir=args.out,
+            log_every=args.log_every,
+            val_every=args.val_every,
+            n_val_batches=args.n_val_batches,
+            seed=args.seed,
+            model_cfg=model_cfg,
+            lr=args.lr,
+            resume=args.resume,
+            min_overlap_score=args.min_overlap,
+            depth_pad=args.depth_pad,
+            device=device,
+        )
 
 
 def cmd_eval(args):

@@ -14,10 +14,14 @@ read:
 - Baseline JPEG (eval/jpeg.py): the Y component, as libjpeg gives it for
   grey output, turned by the EXIF orientation.
 
+``read_unchanged`` stands in for ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``
+on grey PNGs (data/scannet.py's 16-bit depth maps): the samples as
+stored, uint16 for a 16-bit file and uint8 for an 8-bit one.
+
 A file that cv2 reads and the port does not raises ValueError naming the
 format: progressive, arithmetic-coded, lossless, 12-bit and CMYK JPEGs;
-16-bit, palette and interlaced PNGs; ASCII or 16-bit PNM; GIF, BMP, TIFF,
-WebP. A file that cv2 cannot read either (truncated PNG or PNM, a bad CRC,
+palette and interlaced PNGs, and 16-bit ones but for read_unchanged's
+grey; ASCII or 16-bit PNM; GIF, BMP, TIFF, WebP. A file that cv2 cannot read either (truncated PNG or PNM, a bad CRC,
 a JPEG cut inside its headers, bad markers, not an image) raises
 UnreadableImage, a ValueError, so that a caller can skip it as the JAX
 package skips a file for which cv2.imread returns None.
@@ -54,6 +58,19 @@ def read_gray(path: str) -> np.ndarray:
 
         return jpeg.decode_gray(data, path)
     raise _not_decoded(data, path)
+
+
+def read_unchanged(path: str) -> np.ndarray:
+    """[h, w] samples of a grey PNG as stored: uint16 for 16 bits a sample
+    (big-endian in the file), uint8 for 8; other files raise ValueError
+    (UnreadableImage for a damaged one)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(PNG_SIGNATURE):
+        if data[:2] in (b"P5", b"P6") or data.startswith(JPEG_SOI):
+            raise ValueError(f"{path}: read_unchanged reads grey PNGs only")
+        raise _not_decoded(data, path)
+    return _decode_png(data, path, unchanged=True)
 
 
 def read_size(path: str) -> Tuple[int, int]:
@@ -120,7 +137,10 @@ def _png_chunks(data: bytes, path: str):
         pos = end
 
 
-def _decode_png(data: bytes, path: str) -> np.ndarray:
+def _decode_png(data: bytes, path: str,
+                unchanged: bool = False) -> np.ndarray:
+    """Grey uint8 as read_gray gives it; with ``unchanged``, a grey file's
+    samples as stored (8 or 16 bits), and ValueError for any other."""
     chunks = _png_chunks(data, path)
     kind, ihdr = next(chunks)
     if kind != b"IHDR" or len(ihdr) != 13:
@@ -130,9 +150,13 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     if colour not in _PNG_CHANNELS:
         name = _PNG_COLOUR_NAMES.get(colour, f"colour type {colour}")
         raise ValueError(f"{path}: {name} PNG is not decoded by the port")
-    if depth != 8:
+    if unchanged and colour != 0:
+        raise ValueError(f"{path}: colour type {colour} PNG is not read "
+                         "unchanged by the port (grey only)")
+    if depth != 8 and not (unchanged and depth == 16):
         raise ValueError(f"{path}: {depth}-bit PNG is not decoded by the "
-                         "port (8 bits a sample only)")
+                         "port (8 bits a sample; 16 for grey, read "
+                         "unchanged)")
     if interlace:
         raise ValueError(f"{path}: interlaced PNG is not decoded by the port")
     if method or filt or w == 0 or h == 0:
@@ -143,7 +167,8 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     except zlib.error as e:
         raise UnreadableImage(
             f"{path}: corrupt PNG image data ({e})") from None
-    bpp = _PNG_CHANNELS[colour]
+    # bytes a pixel: the filters' unit
+    bpp = _PNG_CHANNELS[colour] * depth // 8
     if len(raw) != h * (1 + w * bpp):
         raise UnreadableImage(f"{path}: PNG image data holds {len(raw)} "
                               f"bytes, expected {h * (1 + w * bpp)}")
@@ -152,6 +177,8 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     if (ftype > 4).any():
         raise UnreadableImage(f"{path}: PNG row filter {int(ftype.max())}")
     px = _unfilter(rows[:, 1:].reshape(h, w, bpp), ftype)
+    if depth == 16:
+        return (px[..., 0].astype(np.uint16) << 8) | px[..., 1]
     if colour in (0, 4):                      # grey; alpha is dropped
         return np.ascontiguousarray(px[..., 0])
     rgb = px[..., :3].astype(np.uint32)

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from geoformer_tpu_torch.core import mesh
 from geoformer_tpu_torch.ops.quantize import int8_conv, int8_dense
 
 
@@ -88,7 +89,14 @@ class BatchNorm(nn.Module):
     (E[x^2] - E[x]^2, clipped at 0), and updates the running statistics as
     flax does: ``ra <- 0.9 ra + 0.1 stat`` with the *biased* variance
     (F.batch_norm's training mode stores the unbiased one, so the update is
-    written out). The update is in place."""
+    written out). The update is in place.
+
+    In a process group of several ranks (data parallelism, core/mesh.py)
+    the batch statistics are the global batch's, as flax takes them under
+    the JAX package's sharded step: each layer sums the stacked per-channel
+    [sum x, sum x^2, count] over the ranks in one differentiable
+    all-reduce, so every rank normalizes alike and keeps equal running
+    statistics."""
 
     momentum = 0.9
 
@@ -106,9 +114,19 @@ class BatchNorm(nn.Module):
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        if mesh.world() > 1:
+            c = xf.shape[1]
+            n = torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                           device=xf.device)
+            stats = mesh.all_sum_grad(torch.cat([
+                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), n]))
+            mean = stats[:c] / stats[-1]
+            var = torch.clamp(stats[c:2 * c] / stats[-1] - mean * mean,
+                              min=0.0)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_((1 - m) * mean.detach())

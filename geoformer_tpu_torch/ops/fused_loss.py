@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from geoformer_tpu_torch.config import LossConfig
+from geoformer_tpu_torch.core import mesh
 from geoformer_tpu_torch.ops.streaming_match import (
     _NEG_INF,
     _prep,
@@ -60,7 +61,8 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
                           mask0: Optional[torch.Tensor] = None,
                           mask1: Optional[torch.Tensor] = None,
                           chunk: int = 600,
-                          axis_name: Optional[str] = None) -> torch.Tensor:
+                          axis_name: Optional[str] = None,
+                          global_counts: bool = False) -> torch.Tensor:
     """Coarse GeoLoss term from features and sparse GT, streamed.
 
     Equal in value and gradient to coarse_loss(dual_softmax(feat0, feat1, T,
@@ -71,6 +73,9 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
         gt_j: [B, L] GT column per image0 cell; gt_valid: [B, L] rows that
             carry a GT match.
         axis_name: sequence parallelism, not ported yet (raises).
+        global_counts: data parallelism: the positive and negative counts
+            are summed over the ranks (no gradient), the sums stay this
+            rank's, so the ranks' terms add up to the global batch's loss.
     """
     if axis_name is not None:
         raise NotImplementedError(
@@ -96,7 +101,8 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
     w = (gt_valid.bool() & cell_ok).float()
     lp = (-torch.log(p_pos) if cfg.coarse_type == "cross_entropy"
           else _focal_pos(p_pos, cfg.focal_alpha, cfg.focal_gamma))
-    pos_loss = (lp * w).sum() / torch.clamp(w.sum(), min=1.0)
+    pos_cnt = mesh.all_sum(w.sum()) if global_counts else w.sum()
+    pos_loss = (lp * w).sum() / torch.clamp(pos_cnt, min=1.0)
     if cfg.coarse_type == "focal" and cfg.sparse_spvs:
         return cfg.pos_weight * pos_loss
 
@@ -112,5 +118,7 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
             use_reentrant=False)
         ln_sum = ln_sum + part
         ln_cnt = ln_cnt + cnt
+    if global_counts:
+        ln_cnt = mesh.all_sum(ln_cnt)
     neg_loss = ln_sum / torch.clamp(ln_cnt, min=1.0)
     return cfg.pos_weight * pos_loss + cfg.neg_weight * neg_loss

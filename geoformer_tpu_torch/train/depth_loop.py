@@ -1,20 +1,29 @@
 """Depth-supervised (MegaDepth/ScanNet) training loop with pose-AUC
-validation, on one device.
+validation, on one device or data-parallel.
 
 Counterpart of geoformer_tpu/train/depth_loop.py, with its parameters,
 defaults, files and printed lines: scene-balanced batches from npz index
 files (data/megadepth.py), the depth train step (train/trainer.py), and a
 validation that recovers each pair's relative pose from its matches by
 the on-device essential RANSAC (geometry/essential.py), aggregates the
-pose AUC at 5/10/20 degrees and the epipolar precision (over this
-process's pairs; core/dist.py gathers them once data parallelism is
-ported), and keeps the best five checkpoints by auc@10 in
-``<ckpt_dir>/best`` beside the three newest in ``ckpt_dir``. It runs on
-the card unless the caller asks for the CPU (``device="cpu"``).
+pose AUC at 5/10/20 degrees and the epipolar precision over the pairs of
+every process (core/dist.py), and keeps the best five checkpoints by
+auc@10 in ``<ckpt_dir>/best`` beside the three newest in ``ckpt_dir``. It
+runs on the card unless the caller asks for the CPU (``device="cpu"``).
+
+In a process group of several ranks (core/mesh.py; ``cli train-depth``
+under torchrun), as the JAX loop over processes: each rank reads its
+share of the scenes (``shard=(rank, world)``) and trains on
+``batch_size // world`` pairs a step of the data-parallel step
+(train/trainer.py); its validation pairs are numbered from
+``rank * 10**9``, gathered from every rank and deduplicated by number
+before the AUC, and the val scalars are averaged over the ranks. Rank 0
+alone prints and writes the metrics and checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -31,7 +40,8 @@ from geoformer_tpu_torch.config import (
     OptimConfig,
     TrainConfig,
 )
-from geoformer_tpu_torch.core.dist import all_gather_metrics
+from geoformer_tpu_torch.core import mesh
+from geoformer_tpu_torch.core.dist import all_gather_metrics, host_mean
 from geoformer_tpu_torch.data.megadepth import scene_balanced_stream
 from geoformer_tpu_torch.eval.pose import HOST_POSE, error_auc
 from geoformer_tpu_torch.geometry.essential import batched_pose_errors
@@ -65,12 +75,13 @@ def run_depth_validation(val_fn, state, val_batches,
     batch), pairs gathered over processes and deduplicated by id, the AUC
     of max(R, t) angular error at 5/10/20 degrees, the mean per-pair
     precision of epipolar errors below epi_err_thr, and the val scalars'
-    means. ``pose_backend="host"`` (cv2's estimator) raises
-    NotImplementedError."""
+    means (over the batches, then the ranks). This rank's pairs are
+    numbered from rank * 10**9. ``pose_backend="host"`` (cv2's estimator)
+    raises NotImplementedError."""
     if pose_backend != "device":
         raise NotImplementedError(HOST_POSE)
     R_errs, t_errs, precs, identifiers, val_scalars = [], [], [], [], []
-    pair_id = 0
+    pair_id = mesh.rank() * 10 ** 9
     for batch in val_batches:
         dev = batch["image0"].device
         scalars, pd = val_fn(state, batch,
@@ -102,7 +113,7 @@ def run_depth_validation(val_fn, state, val_batches,
     agg[f"prec@{epi_err_thr:.0e}"] = (
         float(np.mean(gathered["prec"][keep])) if len(keep) else 0.0)
     for k in val_scalars[0]:
-        agg[k] = float(np.mean([s[k] for s in val_scalars]))
+        agg[k] = host_mean(np.mean([s[k] for s in val_scalars]))
     return agg
 
 
@@ -130,6 +141,11 @@ def run_depth_training(
     """Train for ``steps`` steps (CLI: train-depth); returns (state, the
     validation record of the best auc@10)."""
     device = torch.device(device)
+    if batch_size % mesh.world():
+        raise ValueError(f"batch {batch_size} does not divide over "
+                         f"{mesh.world()} ranks")
+    local_batch = batch_size // mesh.world()
+    writer = mesh.rank() == 0
     cfg = model_cfg or GeoFormerConfig(
         match=MatchConfig(max_matches=match_capacity, force_one_match=True),
         geo=GeoModuleConfig(ransac_iters=256, max_inliers=512),
@@ -141,34 +157,42 @@ def run_depth_training(
                        steps_per_epoch=max(1, steps // 15), optim=optim)
     schedule, true_lr, warmup_actual = make_schedule(
         tcfg.optim, batch_size, tcfg.steps_per_epoch, total_steps=steps)
-    print(f"schedule: true_lr={true_lr:.3e} warmup={warmup_actual} steps")
+    if writer:
+        print(f"schedule: true_lr={true_lr:.3e} warmup={warmup_actual} "
+              "steps")
     state = init_state(cfg, tcfg, seed, device)
     if resume:
         state = restore_checkpoint(ckpt_dir, state, require=True)
-        print(f"resumed at step {state.step}")
+        if writer:
+            print(f"resumed at step {state.step}")
     step_fn = make_depth_train_step(tcfg)
     val_fn = make_depth_val_step(tcfg)
 
     scene_kw = dict(min_overlap_score=min_overlap_score,
-                    img_resize=image_hw[0], depth_pad=depth_pad)
-    stream = scene_balanced_stream(npz_dir, root_dir, batch_size, seed,
+                    img_resize=image_hw[0], depth_pad=depth_pad,
+                    shard=(mesh.rank(), mesh.world()))
+    stream = scene_balanced_stream(npz_dir, root_dir, local_batch, seed,
                                    **scene_kw)
     val_batches = []
     if val_npz_dir:
         val_stream = scene_balanced_stream(
-            val_npz_dir, root_dir, batch_size, seed + 1, **scene_kw)
+            val_npz_dir, root_dir, local_batch, seed + 1, **scene_kw)
         val_batches = [to_device(next(val_stream), device)
                        for _ in range(n_val_batches)]
 
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
     metrics_path = os.path.join(ckpt_dir, "metrics.jsonl")
     ransac_gen = torch.Generator(device).manual_seed(seed + 2)
     t0 = time.time()
     last = t0
     best = {"auc@10": -1.0}
-    with open(metrics_path, "a") as mf:
+    with (open(metrics_path, "a") if writer
+          else contextlib.nullcontext()) as mf:
 
         def log(m):
+            if mf is None:
+                return
             print(json.dumps(m))
             mf.write(json.dumps(m) + "\n")
             mf.flush()
@@ -194,15 +218,18 @@ def run_depth_training(
                 agg = run_depth_validation(val_fn, state, val_batches)
                 agg["step"] = step + 1
                 log(agg)
-                save_checkpoint(ckpt_dir, state, step + 1, keep=3)
-                save_checkpoint_monitored(os.path.join(ckpt_dir, "best"),
-                                          state, step + 1, agg,
-                                          monitor="auc@10")
+                if writer:
+                    save_checkpoint(ckpt_dir, state, step + 1, keep=3)
+                    save_checkpoint_monitored(
+                        os.path.join(ckpt_dir, "best"), state, step + 1,
+                        agg, monitor="auc@10")
                 if agg["auc@10"] > best["auc@10"]:
                     best = agg
-            elif (step + 1) % ckpt_every == 0 or step + 1 == steps:
+            elif writer and ((step + 1) % ckpt_every == 0
+                             or step + 1 == steps):
                 save_checkpoint(ckpt_dir, state, step + 1, keep=3)
 
-    save_params(os.path.join(ckpt_dir, "params_final.npz"), state.model,
-                state.step)
+    if writer:
+        save_params(os.path.join(ckpt_dir, "params_final.npz"),
+                    state.model, state.step)
     return state, best

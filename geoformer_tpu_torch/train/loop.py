@@ -1,4 +1,4 @@
-"""Self-supervised homography training loop on one device.
+"""Self-supervised homography training loop, on one device or data-parallel.
 
 Counterpart of run_training in geoformer_tpu/train/loop.py, with its
 parameters, defaults, files and printed lines: base images from the
@@ -17,10 +17,22 @@ every logged scalar to an event file under ``<ckpt_dir>/tb``
 (utils/tb_events.py), and ``log_figures`` a match figure of the
 validation batch at each validation (utils/plotting.py). It runs on the
 card unless the caller asks for the CPU (``device="cpu"``).
+
+In a process group of several ranks (core/mesh.py; ``cli train`` under
+torchrun) it is the JAX loop over a mesh of that many devices: every rank
+builds the global batch from the shared seeds and trains on its slice of
+it (train/trainer.shard_train_step), so a run at world size N takes the
+steps of the run at world size 1. ``batch_size`` is the global batch and
+must divide by the world size. Rank 0 alone validates, on the whole
+validation batch (a val step holds no collective), so the validation
+scalars are those of any world size; it alone prints and writes the
+metrics, checkpoints, event files, figures and ``params_final.npz``.
+Every rank restores on ``resume``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -36,6 +48,7 @@ from geoformer_tpu_torch.config import (
     OptimConfig,
     TrainConfig,
 )
+from geoformer_tpu_torch.core import mesh
 from geoformer_tpu_torch.data.synthetic import (
     base_image_stream,
     make_pair_batch,
@@ -50,6 +63,7 @@ from geoformer_tpu_torch.train.trainer import (
     init_state,
     make_train_step,
     make_val_step,
+    shard_train_step,
 )
 from geoformer_tpu_torch.utils.plotting import log_val_match_figure
 from geoformer_tpu_torch.utils.tb_events import EventWriter
@@ -84,6 +98,10 @@ def run_training(
 ):
     """Train for ``steps`` steps; returns the TrainState."""
     device = torch.device(device)
+    if batch_size % mesh.world():
+        raise ValueError(f"batch {batch_size} does not divide over "
+                         f"{mesh.world()} ranks")
+    writer = mesh.rank() == 0
     cfg = model_cfg or GeoFormerConfig(
         match=MatchConfig(max_matches=match_capacity, force_one_match=True),
         geo=GeoModuleConfig(ransac_iters=256, max_inliers=512),
@@ -97,15 +115,17 @@ def run_training(
                        steps_per_epoch=max(1, steps // 15), optim=optim)
     schedule, true_lr, warmup_actual = make_schedule(
         tcfg.optim, batch_size, tcfg.steps_per_epoch, total_steps=steps)
-    print(f"schedule: true_lr={true_lr:.3e} warmup={warmup_actual} steps "
-          f"scheduler={tcfg.optim.scheduler} "
-          f"steps_per_epoch={tcfg.steps_per_epoch}")
+    if writer:
+        print(f"schedule: true_lr={true_lr:.3e} warmup={warmup_actual} "
+              f"steps scheduler={tcfg.optim.scheduler} "
+              f"steps_per_epoch={tcfg.steps_per_epoch}")
     state = init_state(cfg, tcfg, seed, device)
     if resume:
         state = restore_checkpoint(ckpt_dir, state, require=True)
-        print(f"resumed at step {state.step}")
-    step_fn = make_train_step(tcfg)
-    val_fn = make_val_step(tcfg) if val_every else None
+        if writer:
+            print(f"resumed at step {state.step}")
+    step_fn = shard_train_step(make_train_step(tcfg))
+    val_fn = make_val_step(tcfg) if val_every and writer else None
 
     data_seed = seed + RESUME_STRIDE * state.step
     stream = base_image_stream(image_hw, batch_size, data_seed,
@@ -116,7 +136,7 @@ def run_training(
                                bank_refresh=bank_refresh)
     pair_gen = torch.Generator(device).manual_seed(data_seed + 1)
     ransac_gen = torch.Generator(device).manual_seed(data_seed + 2)
-    if val_every:
+    if val_fn is not None:
         # held-out validation batch from disjoint seeds
         val_stream = base_image_stream(image_hw, batch_size, seed + 9999,
                                        image_dir=image_dir,
@@ -127,11 +147,15 @@ def run_training(
             val_base, torch.Generator(device).manual_seed(seed + 777),
             sensor=sensor_aug)
 
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tb = EventWriter(os.path.join(ckpt_dir, "tb")) if tensorboard else None
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    tb = (EventWriter(os.path.join(ckpt_dir, "tb"))
+          if tensorboard and writer else None)
     figures = tb is not None and log_figures and val_every
 
     def log(mf, m: dict, step: int) -> None:
+        if mf is None:
+            return
         print(json.dumps(m))
         mf.write(json.dumps(m) + "\n")
         mf.flush()
@@ -144,7 +168,8 @@ def run_training(
     t0 = time.time()
     last = t0
     try:
-        with open(metrics_path, "a") as mf:
+        with (open(metrics_path, "a") if writer
+              else contextlib.nullcontext()) as mf:
             for step in range(state.step, steps):
                 base = torch.from_numpy(next(stream)).to(device)
                 batch = make_pair_batch(base, pair_gen, sensor=sensor_aug)
@@ -172,12 +197,14 @@ def run_training(
                                 generator=torch.Generator(device)
                                 .manual_seed(0))
                         log_val_match_figure(tb, out, val_batch, step + 1)
-                if (step + 1) % ckpt_every == 0 or step + 1 == steps:
+                if writer and ((step + 1) % ckpt_every == 0
+                               or step + 1 == steps):
                     save_checkpoint(ckpt_dir, state, step + 1)
     finally:
         if tb is not None:
             tb.close()
 
-    save_params(os.path.join(ckpt_dir, "params_final.npz"), state.model,
-                state.step)
+    if writer:
+        save_params(os.path.join(ckpt_dir, "params_final.npz"),
+                    state.model, state.step)
     return state

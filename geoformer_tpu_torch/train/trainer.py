@@ -12,7 +12,17 @@ inference-mode forward, and a RANSAC fit on each pair's fine matches scored
 by its corner error. The depth steps take their GT from depth maps and
 relative poses (train/supervision.py's depth branch) and their validation
 returns the matches at original resolution with their epipolar errors.
-Data parallelism (shard_train_step) is not ported yet.
+
+Data parallelism (the JAX package's shard_train_step: state replicated,
+batch sharded, GSPMD's gradient sum). In a process group of several ranks
+(core/mesh.py) each train step computes on this rank's shard of the
+global batch as that batch's step would: BatchNorm takes the global
+batch's statistics (models/layers.py), every loss mean divides this rank's
+sum by the global count (train/loss.py), the RANSAC uniforms are drawn for
+the global batch from the shared generator and sliced, and after the
+backward one all-reduce sums the gradient and the scalars over the ranks
+before the clip and AdamW, so every rank takes the same update.
+shard_train_step wraps a step for a caller that holds the global batch.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 
 from geoformer_tpu_torch import weights
 from geoformer_tpu_torch.config import GeoFormerConfig, TrainConfig
+from geoformer_tpu_torch.core import mesh
 from geoformer_tpu_torch.geometry.depth import (
     essential_from_pose,
     symmetric_epipolar_distance,
@@ -85,7 +96,9 @@ def make_train_step(tcfg: TrainConfig):
         state.optimizer.zero_grad(set_to_none=True)
         out = model(batch["image0"], batch["image1"], mask0, mask1,
                     sample_idx=sample_idx, generator=generator, train=True,
-                    return_feats=True)
+                    return_feats=True,
+                    ransac_noise=_global_noise(cfg, batch, sample_idx,
+                                               generator))
         with torch.no_grad():
             gt_j, gt_valid = spvs_coarse_homography_sparse(
                 batch["H_0to1"], batch["H_1to0"], (H, W), cfg.coarse_scale,
@@ -96,19 +109,50 @@ def make_train_step(tcfg: TrainConfig):
         loss, scalars = geo_loss_streaming(
             out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,
             out.matches.valid, tcfg.loss, cfg.match.dsmax_temperature,
-            mask0, mask1, sp_axis=cfg.seq_axis)
+            mask0, mask1, sp_axis=cfg.seq_axis,
+            global_counts=mesh.world() > 1)
         scalars = {k: v.detach().float() for k, v in scalars.items()}
-        scalars["num_inliers"] = out.geo.num_inliers.float().mean()
-        scalars["num_matches"] = out.matches.valid.sum(-1).float().mean()
+        scalars["num_inliers"] = _batch_mean(out.geo.num_inliers)
+        scalars["num_matches"] = _batch_mean(out.matches.valid.sum(-1))
         return _update(state, tcfg, loss, lr, scalars)
 
     return train_step
 
 
+def _global_noise(cfg: GeoFormerConfig, batch, sample_idx, generator):
+    """In a group of several ranks with no injected samples: the GAM's
+    RANSAC uniforms [B, ransac_iters, capacity] drawn for the global batch
+    from ``generator`` (which every rank seeds alike) as the one-process
+    step draws them, and this rank's rows of them; else None (the model
+    draws)."""
+    if mesh.world() == 1 or sample_idx is not None:
+        return None
+    b, h, w, _ = batch["image0"].shape
+    cells = (h // cfg.coarse_scale) * (w // cfg.coarse_scale)
+    cap = cfg.match.max_matches
+    n = cells if cap <= 0 or cap >= cells else cap
+    total = b * mesh.world()
+    u = torch.rand((total, cfg.geo.ransac_iters, n), generator=generator,
+                   device=batch["image0"].device)
+    return u[mesh.local_shard_slice(total)]
+
+
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of per-pair values over the global batch; in a group of
+    several ranks, this rank's share of it (its sum over the global batch
+    size), which _update sums over the ranks."""
+    x = x.float()
+    if mesh.world() == 1:
+        return x.mean()
+    return x.sum() / (x.shape[0] * mesh.world())
+
+
 def _update(state: TrainState, tcfg: TrainConfig, loss: torch.Tensor,
             lr: float, scalars: dict) -> dict:
     """Backward, global-norm clip and AdamW at ``lr``; adds grad_norm
-    (before clipping) and lr to ``scalars``."""
+    (before clipping) and lr to ``scalars``. In a group of several ranks
+    the gradients and the scalars (each rank's share) are summed over the
+    ranks in one all-reduce first."""
     loss.backward()
     params = list(state.model.parameters())
     for p in params:
@@ -116,6 +160,13 @@ def _update(state: TrainState, tcfg: TrainConfig, loss: torch.Tensor,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    if mesh.world() > 1:
+        keys = list(scalars)
+        summed = mesh.all_sum_flat(
+            grads + [torch.stack([scalars[k] for k in keys])])
+        for g, s in zip(grads, summed):
+            g.copy_(s)
+        scalars = dict(zip(keys, summed[-1].unbind()))
     norm = global_norm(grads)
     if tcfg.optim.gradient_clipping > 0:
         clip_by_global_norm_(grads, tcfg.optim.gradient_clipping, norm)
@@ -192,7 +243,8 @@ def make_val_step(tcfg: TrainConfig):
     return val_step
 
 
-def _depth_losses(out, batch, tcfg: TrainConfig, cfg: GeoFormerConfig):
+def _depth_losses(out, batch, tcfg: TrainConfig, cfg: GeoFormerConfig,
+                  global_counts: bool = False):
     """The streaming GeoLoss of a forward's output on a posed-RGBD batch,
     its GT from the depths and poses at original resolution."""
     H, W = tcfg.image_hw
@@ -212,7 +264,7 @@ def _depth_losses(out, batch, tcfg: TrainConfig, cfg: GeoFormerConfig):
     return geo_loss_streaming(
         out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,
         out.matches.valid, tcfg.loss, cfg.match.dsmax_temperature,
-        mask0, mask1, sp_axis=cfg.seq_axis)
+        mask0, mask1, sp_axis=cfg.seq_axis, global_counts=global_counts)
 
 
 def make_depth_train_step(tcfg: TrainConfig):
@@ -232,10 +284,13 @@ def make_depth_train_step(tcfg: TrainConfig):
         state.optimizer.zero_grad(set_to_none=True)
         out = model(batch["image0"], batch["image1"], batch.get("mask0"),
                     batch.get("mask1"), sample_idx=sample_idx,
-                    generator=generator, train=True, return_feats=True)
-        loss, scalars = _depth_losses(out, batch, tcfg, model.config)
+                    generator=generator, train=True, return_feats=True,
+                    ransac_noise=_global_noise(model.config, batch,
+                                               sample_idx, generator))
+        loss, scalars = _depth_losses(out, batch, tcfg, model.config,
+                                      global_counts=mesh.world() > 1)
         scalars = {k: v.detach().float() for k, v in scalars.items()}
-        scalars["num_matches"] = out.matches.valid.sum(-1).float().mean()
+        scalars["num_matches"] = _batch_mean(out.matches.valid.sum(-1))
         return _update(state, tcfg, loss, lr, scalars)
 
     return train_step
@@ -277,3 +332,22 @@ def make_depth_val_step(tcfg: TrainConfig):
                          "epi_errs": epi}
 
     return val_step
+
+
+def shard_train_step(train_step):
+    """Counterpart of shard_train_step for a caller that holds the global
+    batch: returns step(state, batch, lr, sample_idx=None, generator=None)
+    taking the global batch (and global RANSAC samples, when injected)
+    and running ``train_step`` on this rank's local_shard_slice of them.
+    The scalars and the update are the global batch's step's on every rank
+    (see the module docstring). World size 1: ``train_step`` itself."""
+    if mesh.world() == 1:
+        return train_step
+
+    def step(state, batch, lr, sample_idx=None, generator=None):
+        sl = mesh.local_shard_slice(batch["image0"].shape[0])
+        return train_step(state, mesh.shard_batch(batch), lr,
+                          sample_idx=None if sample_idx is None
+                          else sample_idx[sl], generator=generator)
+
+    return step

@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from geoformer_tpu.data import augment as ja  # noqa: E402
 from geoformer_tpu_torch.data import augment as ta  # noqa: E402
 from torch_port_util import n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 B, H, W = 3, 37, 45        # not multiples of 8: JPEG pads and crops
 TOL = 2e-6

@@ -17,6 +17,7 @@ pytest.importorskip("torch")
 
 from geoformer_tpu.eval import colmap_io as J  # noqa: E402
 from geoformer_tpu_torch.eval import colmap_io as P  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 
 def _model():

@@ -21,6 +21,7 @@ holds every kernel to its plain version at the main path's shapes and
 inside the model.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -713,3 +714,158 @@ def test_int8_full_forward_launches_k1_k2_per_forward(dev):
     assert gk.LAUNCHES["box_window_attention"] == 4
     assert gk.LAUNCHES["masked_kv_attention"] == 4
     assert torch.isfinite(out.fine.mkpts1).all()
+
+
+# ------------------------------------------------ data parallelism, engine
+
+def _bn_case():
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=(4, 8, 12, 16)) * 3 + 2).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    return x, g, rng.normal(size=8).astype(np.float32), \
+        rng.normal(size=8).astype(np.float32)
+
+
+def test_global_batchnorm_of_two_ranks_on_the_card(dev, tmp_path):
+    """Two gloo ranks on the one card (CUDA tensors; NCCL refuses two
+    ranks on one device), each with half of a batch of 4: the outputs, the
+    input gradients, the summed parameter gradients and both ranks'
+    running statistics equal one process's layer on the whole batch on
+    the card, 1e-5 relative / 1e-6 absolute (the ranks sum the moments in
+    another order); the metric gather goes through the host."""
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.models.layers import BatchNorm
+    from torch_port_ranks import gather_and_bn
+
+    inputs = _bn_case()
+    per_rank = [dict(v=np.full(3, r, np.float32), scalar=np.float32(r))
+                for r in range(2)]
+    res = mesh.launch(gather_and_bn, 2, (per_rank, inputs, "cuda:0"),
+                      init_dir=str(tmp_path), timeout=300)
+    x, g, w, b = (torch.from_numpy(a).to(dev) for a in inputs)
+    bn = BatchNorm(8).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(w)
+        bn.bias.copy_(b)
+    x.requires_grad_(True)
+    y = bn(x, train=True)
+    (y * g).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.concatenate([r["y"] for r in res]),
+                               y.detach().cpu().numpy(), **tol)
+    np.testing.assert_allclose(np.concatenate([r["dx"] for r in res]),
+                               x.grad.cpu().numpy(), **tol)
+    np.testing.assert_allclose(res[0]["dw"] + res[1]["dw"],
+                               bn.weight.grad.cpu().numpy(), **tol)
+    for name in ("running_mean", "running_var"):
+        np.testing.assert_array_equal(res[0][name], res[1][name])
+        np.testing.assert_allclose(res[0][name],
+                                   getattr(bn, name).cpu().numpy(), **tol)
+    assert res[0]["gathered"]["v"].tolist() == [0, 0, 0, 1, 1, 1]
+    assert res[1]["host_mean"] == 0.5
+
+
+def _to(host: dict, device) -> "object":
+    from geoformer_tpu_torch.engine.ba import BAProblem
+
+    return BAProblem(**{k: torch.from_numpy(v).to(device)
+                        for k, v in host.items()})
+
+
+def _same_solution(got, ref):
+    """Two BA solutions (cams, points, history) of one problem, compared
+    where the problem fixes them: camera 0 alone is frozen, so the scene's
+    scale along the baseline is free and f32 sums in another order (the
+    card's, another rank count's) let Gauss-Newton settle a few 1e-3 apart
+    along it (measured up to 1.8e-3 on cameras, 2e-2 on points, 1.2 % on
+    the first step's cost). So: the first cost within 5e-2 relative, both
+    final costs below 1e-3 px, the
+    camera centres equal within 1e-3 after a similarity alignment, and the
+    raw cameras within 2e-2."""
+    from geoformer_tpu_torch.engine import trajectory as tr
+
+    cams, _, hist = (torch.as_tensor(x).cpu() for x in got)
+    rcams, _, rhist = (torch.as_tensor(x).cpu() for x in ref)
+    np.testing.assert_allclose(hist[0], rhist[0], rtol=5e-2)
+    assert float(hist[-1]) < 1e-3 and float(rhist[-1]) < 1e-3
+    assert float(tr.ate_rmse(tr.camera_centers(cams),
+                             tr.camera_centers(rcams))) < 1e-3
+    np.testing.assert_allclose(cams, rcams, atol=2e-2)
+
+
+def test_bundle_adjustment_on_the_card_matches_the_cpu(dev):
+    """ba_solve (dense and Huber) and ba_solve_cg on CUDA tensors against
+    the same calls on the CPU (_same_solution)."""
+    from geoformer_tpu_torch.engine import ba
+    from torch_port_ranks import ba_scene
+
+    host = ba_scene(1, C=6, P=80)
+    for fn, kw in ((ba.ba_solve, dict(iters=10)),
+                   (ba.ba_solve, dict(iters=10, huber_delta=1.0)),
+                   (ba.ba_solve_cg, dict(iters=6, cg_iters=16))):
+        got = fn(_to(host, dev), **kw)
+        assert all(x.device.type == "cuda" for x in got)
+        _same_solution(got, fn(_to(host, "cpu"), **kw))
+
+
+def test_pose_graph_and_umeyama_on_the_card_match_the_cpu(dev):
+    """optimize_pose_graph on an 8-pose loop with noisy odometry and an
+    exact closure, and align_umeyama / ate_rmse, on CUDA against the CPU
+    (poses within 2e-4, the similarity within 1e-4)."""
+    from geoformer_tpu_torch.engine import pose_graph as pg
+    from geoformer_tpu_torch.engine import trajectory as tr
+    from geoformer_tpu_torch.engine.lie import se3_exp
+
+    rng = np.random.default_rng(3)
+    step = se3_exp(torch.tensor([0, 0, 0.1, 0.5, 0.05, 0.0]))
+    gt = [torch.eye(4)]
+    for _ in range(7):
+        gt.append(step @ gt[-1])
+    noise = se3_exp(torch.from_numpy(rng.normal(0, 0.01, (7, 6))
+                                     .astype(np.float32)))
+    eT = [noise[i] @ gt[i + 1] @ torch.linalg.inv(gt[i]) for i in range(7)]
+    eT.append(gt[7] @ torch.linalg.inv(gt[0]))
+    init = [torch.eye(4)]
+    for i in range(7):
+        init.append(eT[i] @ init[i])
+    arrays = dict(poses=torch.stack(init), edge_i=torch.tensor(
+        list(range(7)) + [0]), edge_j=torch.tensor(list(range(1, 8)) + [7]),
+        edge_T=torch.stack(eT), edge_valid=torch.ones(8, dtype=torch.bool),
+        edge_weight=torch.tensor([1.0] * 7 + [10.0]))
+    got, hist = pg.optimize_pose_graph(pg.PoseGraph(
+        **{k: v.to(dev) for k, v in arrays.items()}), iters=10)
+    ref, ref_hist = pg.optimize_pose_graph(pg.PoseGraph(**arrays), iters=10)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=2e-4)
+    np.testing.assert_allclose(hist.cpu().numpy(), ref_hist.numpy(),
+                               rtol=1e-2, atol=1e-5)
+    est = torch.from_numpy(rng.normal(size=(30, 3)).astype(np.float32))
+    gt_c = 2 * est @ se3_exp(torch.tensor([0.1, 0.2, 0.7, 0, 0, 0]))[
+        :3, :3].T + torch.tensor([1.0, 2.0, 3.0])
+    for a, b in zip(tr.align_umeyama(est.to(dev), gt_c.to(dev)),
+                    tr.align_umeyama(est, gt_c)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    assert float(tr.ate_rmse(est.to(dev), gt_c.to(dev))) < 1e-4
+
+
+def test_sharded_bundle_adjustment_of_two_ranks_on_the_card(dev, tmp_path):
+    """ba_solve_sharded and ba_solve_points_sharded at world size 2, two
+    gloo ranks with CUDA tensors on the one card, against ba_solve and
+    ba_solve_points_sharded in one process on the card (world size 1, its
+    observations grouped by point into one slice), every rank alike
+    (_same_solution)."""
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.engine import ba
+    from torch_port_ranks import ba_scene, engine_solve
+
+    hosts = [ba_scene(5), ba_scene(5, by_point_shards=2)]
+    res = mesh.launch(engine_solve, 2, (hosts, 8, "cuda:0"),
+                      init_dir=str(tmp_path), timeout=300)
+    refs = (ba.ba_solve(_to(hosts[0], dev), iters=8),
+            ba.ba_solve_points_sharded(_to(ba_scene(5, by_point_shards=1),
+                                           dev), iters=8))
+    for a, b in zip(res[0], res[1]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for got, ref in zip(res[0], refs):
+        _same_solution(got, ref)

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from geoformer_tpu_torch.eval import depth_gate as dg  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 A5, A10, A20 = (dg.CPU_REF[k] for k in dg.AUCS)

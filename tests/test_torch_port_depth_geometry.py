@@ -45,6 +45,7 @@ from geoformer_tpu_torch.models.coarse_matching import (  # noqa: E402
 )
 from geoformer_tpu_torch.train import supervision as PS  # noqa: E402
 from torch_port_util import n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 TIE = 1e-3
 B, L = 3, 400

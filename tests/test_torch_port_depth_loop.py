@@ -39,6 +39,7 @@ from geoformer_tpu_torch.train import depth_loop  # noqa: E402
 from geoformer_tpu_torch.train.trainer import init_state  # noqa: E402
 from geoformer_tpu_torch.weights import load_npz  # noqa: E402
 from torch_port_util import port_config, small_config  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 HW = (64, 64)
 TRAIN_KEYS = {"loss", "loss_c", "loss_d", "loss_f", "num_matches",

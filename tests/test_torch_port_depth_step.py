@@ -69,6 +69,7 @@ from torch_port_util import (  # noqa: E402
     small_config,
     t,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 B, HW = 2, (64, 64)
 SEED = 4                  # the batch (see the module docstring)

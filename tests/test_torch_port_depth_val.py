@@ -56,6 +56,7 @@ from torch_port_util import (  # noqa: E402
     port_config,
     t,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 CKPT = Path(__file__).resolve().parent.parent / "checkpoints" / \
     "tpu_r5_depth2" / "params_final.npz"

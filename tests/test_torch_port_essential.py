@@ -34,6 +34,7 @@ from geoformer_tpu.geometry import essential as J  # noqa: E402
 from geoformer_tpu_torch.geometry import essential as P  # noqa: E402
 from geoformer_tpu_torch.geometry.ransac import gumbel_sample_idx  # noqa: E402
 from torch_port_util import n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 K = np.array([[420.0, 0, 320], [0, 420, 240], [0, 0, 1]])
 ITERS = 128

@@ -19,6 +19,7 @@ pytest.importorskip("torch")
 from geoformer_tpu.eval import matcher as j_matcher  # noqa: E402
 from geoformer_tpu_torch.eval import matcher  # noqa: E402
 from geoformer_tpu_torch.eval.clahe import clahe  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 SIZES = [(8, 8), (9, 9), (16, 12), (61, 77), (64, 64), (257, 199),
          (100, 803), (480, 640)]

@@ -33,6 +33,7 @@ from geoformer_tpu_torch.data import native  # noqa: E402
 from geoformer_tpu_torch.train.loop import run_training  # noqa: E402
 from geoformer_tpu_torch.weights import load_npz  # noqa: E402
 from torch_port_util import port_config, small_config  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = str(ROOT / "checkpoints" / "tpu_r3_main" / "params_final.npz")

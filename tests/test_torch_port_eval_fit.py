@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from geoformer_tpu.eval.hpatches import fit_homography_np as j_fit  # noqa: E402
 from geoformer_tpu_torch.eval.hpatches import fit_homography_np  # noqa: E402
 from torch_port_util import jax_fit_sample_idx as jax_sample_idx  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 H_TRUE = np.array([[0.9, 0.08, 20.0], [-0.05, 1.1, -12.0], [2e-4, -1e-4, 1.0]])
 

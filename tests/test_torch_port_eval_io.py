@@ -46,6 +46,7 @@ from geoformer_tpu_torch.geometry.homography import (  # noqa: E402
 )
 from geoformer_tpu_torch.ops.image_warp import warp_image  # noqa: E402
 from geoformer_tpu_torch.ops.resize import resize_linear_u8  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 HOLDOUT = sorted((Path(__file__).resolve().parent.parent / "data"
                   / "holdout_photos").glob("*.png"))

@@ -36,6 +36,7 @@ from test_torch_port_eval_fire_isc import (  # noqa: E402
     jax_protocol,
 )
 from torch_port_util import JaxDrawsMatcher, port_config  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 IMSIZE = 128
 

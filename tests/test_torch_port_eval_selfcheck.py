@@ -46,6 +46,7 @@ from torch_port_util import (  # noqa: E402
     match_bar,
     n,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "checkpoints" / "tpu_r3_main" / "params_final.npz"

@@ -29,6 +29,7 @@ from geoformer_tpu_torch.eval.parity_drill import (  # noqa: E402
     fabricate_checkpoint,
 )
 from geoformer_tpu_torch.utils import plotting as pp  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "checkpoints" / "tpu_r3_main" / "params_final.npz"

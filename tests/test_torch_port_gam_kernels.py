@@ -24,6 +24,7 @@ from geoformer_tpu.ops.pallas_attention import (  # noqa: E402
 )
 from geoformer_tpu_torch.ops import gam_kernels as gk  # noqa: E402
 from torch_port_util import assert_close, n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 FILL = -1e8
 

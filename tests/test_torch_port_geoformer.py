@@ -42,6 +42,7 @@ from torch_port_util import (  # noqa: E402
     smooth_images,
     t,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 B, H, W = 2, 64, 80
 

@@ -23,6 +23,7 @@ from geoformer_tpu.geometry.ransac import (  # noqa: E402
 from geoformer_tpu_torch.geometry import homography as th  # noqa: E402
 from geoformer_tpu_torch.geometry import ransac as tr  # noqa: E402
 from torch_port_util import assert_close, n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 
 def _homographies(rng, b):

@@ -23,6 +23,7 @@ from geoformer_tpu_torch.data.hdf5 import (  # noqa: E402
     write_dataset,
     write_datasets,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 RNG = np.random.default_rng(0)
 DEPTH = (RNG.random((120, 160)) * 10).astype(np.float32)

@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from geoformer_tpu.engine import homography_graph as JG  # noqa: E402
 from geoformer_tpu.geometry.homography import corner_error  # noqa: E402
 from geoformer_tpu_torch.engine import homography_graph as PG  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 HW = (480, 640)
 

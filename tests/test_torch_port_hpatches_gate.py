@@ -35,6 +35,7 @@ from geoformer_tpu.train.checkpoint import load_variables  # noqa: E402
 from geoformer_tpu_torch.eval import hpatches  # noqa: E402
 from geoformer_tpu_torch.eval.selfcheck import load_model  # noqa: E402
 from torch_port_util import JaxDrawsMatcher, port_config  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "checkpoints" / "tpu_r3_main" / "params_final.npz"

@@ -36,6 +36,7 @@ from geoformer_tpu_torch.eval import hpatches_protocol  # noqa: E402
 from geoformer_tpu_torch.eval import hpatches_synth as hs  # noqa: E402
 from geoformer_tpu_torch.eval import parity_drill  # noqa: E402
 from geoformer_tpu_torch.eval.image_io import read_gray  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "checkpoints" / "tpu_r3_main" / "params_final.npz"

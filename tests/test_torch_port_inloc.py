@@ -27,6 +27,7 @@ from torch_port_util import (  # noqa: E402
     close_poses,
     localization_scene,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 
 def _scans(sc, root):

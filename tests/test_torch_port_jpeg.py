@@ -25,6 +25,7 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from geoformer_tpu_torch.eval import image_io, jpeg  # noqa: E402
 from geoformer_tpu_torch.eval.image_io import UnreadableImage  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 
 def _image(hw, colour: bool, seed: int) -> np.ndarray:

@@ -32,6 +32,7 @@ from geoformer_tpu.engine import lie as JL  # noqa: E402
 from geoformer_tpu.engine import pnp as JP  # noqa: E402
 from geoformer_tpu_torch.engine import lie as PL  # noqa: E402
 from geoformer_tpu_torch.engine import pnp as PP  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 ITERS = 256
 F32_T = 1e-3

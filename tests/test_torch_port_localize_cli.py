@@ -30,6 +30,7 @@ from geoformer_tpu_torch.eval import (  # noqa: E402
     ate_protocol,
     localize_protocol,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 CKPT = str(Path(__file__).resolve().parent.parent / "checkpoints"
            / "tpu_r3_main" / "params_final.npz")

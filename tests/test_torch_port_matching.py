@@ -26,6 +26,7 @@ from geoformer_tpu_torch.ops import streaming_match as tsm  # noqa: E402
 from geoformer_tpu_torch.ops.matching import dual_softmax  # noqa: E402
 from torch_port_util import assert_close, flatten, n, t  # noqa: E402
 from geoformer_tpu_torch.weights import load_jax_params  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 
 def _feats(seed, b=2, l=70, s=60, c=16, scale=1.5, noise=0.1):

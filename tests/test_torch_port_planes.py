@@ -45,6 +45,7 @@ from geoformer_tpu_torch.data import megadepth as PM  # noqa: E402
 from geoformer_tpu_torch.data import native as pnative  # noqa: E402
 from geoformer_tpu_torch.data import planes as PP  # noqa: E402
 from geoformer_tpu_torch.data.hdf5 import read_dataset  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 HW = (120, 160)
 N_CAMS = 4

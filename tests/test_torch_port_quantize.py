@@ -25,6 +25,7 @@ from geoformer_tpu.ops import quantize as jq  # noqa: E402
 from geoformer_tpu_torch.models.layers import Int8Conv, Int8Dense  # noqa: E402
 from geoformer_tpu_torch.ops import quantize as tq  # noqa: E402
 from torch_port_util import n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 
 def _ties():

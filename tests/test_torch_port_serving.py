@@ -31,6 +31,7 @@ from geoformer_tpu_torch.models import GeoFormer  # noqa: E402
 from geoformer_tpu_torch.ops import gam_kernels as gk  # noqa: E402
 from geoformer_tpu_torch.serving import export as serving  # noqa: E402
 from torch_port_util import port_config, small_config  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 HW, B = (120, 160), 2

@@ -47,6 +47,7 @@ from torch_port_util import (  # noqa: E402
     localization_scene,
     pose_gap,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 def _same(a, b):
     """Nested dicts/lists/arrays equal, value for value."""

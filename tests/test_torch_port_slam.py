@@ -28,6 +28,7 @@ from geoformer_tpu.engine import slam as JS  # noqa: E402
 from geoformer_tpu.geometry.homography import corner_error  # noqa: E402
 from geoformer_tpu_torch.engine import slam as PS  # noqa: E402
 from torch_port_util import JaxDrawsMatcher  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 HW = (240, 320)
 FRAMES = 7

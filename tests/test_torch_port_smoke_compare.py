@@ -16,6 +16,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from torch_port_util import one_torch_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parent.parent
 DRIVER = ROOT / "geoformer_tpu_torch" / "eval" / "smoke_compare.py"
 

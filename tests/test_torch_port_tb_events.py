@@ -33,6 +33,7 @@ from geoformer_tpu.utils import plotting as jplot  # noqa: E402
 from geoformer_tpu_torch.train.loop import run_training  # noqa: E402
 from geoformer_tpu_torch.utils import plotting, tb_events  # noqa: E402
 from torch_port_util import port_config, small_config  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 # the keys the JAX loop logs (train step scalars + imgs_per_s; val step)
 TRAIN_TAGS = {"loss", "loss_c", "loss_d", "loss_f", "num_inliers",

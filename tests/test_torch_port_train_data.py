@@ -52,6 +52,7 @@ from geoformer_tpu_torch.train.supervision import (  # noqa: E402
     spvs_fine_homography,
 )
 from torch_port_util import assert_close, n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 HW = (64, 80)
 

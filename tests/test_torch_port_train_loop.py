@@ -50,6 +50,7 @@ from geoformer_tpu_torch.weights import load_npz  # noqa: E402
 from test_torch_port_augment import _assert_jpeg_close, jax_draws  # noqa: E402
 from test_torch_port_train_data import HW, jax_pair_draws  # noqa: E402
 from torch_port_util import assert_close, n, port_config, small_config, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 TINY = (24, 32)          # numpy-texture banks: 64 images a bank
 

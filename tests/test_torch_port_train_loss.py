@@ -52,6 +52,7 @@ from geoformer_tpu_torch.train.optim import (  # noqa: E402
 )
 from geoformer_tpu_torch.weights import load_jax_params  # noqa: E402
 from torch_port_util import assert_close, flatten, n, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 LOSS_CONFIGS = {
     "sparse_focal": {},

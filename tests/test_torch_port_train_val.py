@@ -55,6 +55,7 @@ from torch_port_util import (  # noqa: E402
     small_config,
     t,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 LOSSES = ("val_loss", "val_loss_c", "val_loss_d", "val_loss_f")
 FIT_ITERS = 256

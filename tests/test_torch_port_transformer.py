@@ -19,6 +19,7 @@ from geoformer_tpu_torch.models import transformer as ttr  # noqa: E402
 from geoformer_tpu_torch.ops import attention as tatt  # noqa: E402
 from geoformer_tpu_torch.weights import load_jax_params  # noqa: E402
 from torch_port_util import assert_close, flatten, t  # noqa: E402
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-4, 1e-5
 

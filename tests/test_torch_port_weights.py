@@ -43,6 +43,7 @@ from torch_port_util import (  # noqa: E402
     smooth_images,
     t,
 )
+from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 CKPT = os.path.join(os.path.dirname(__file__), os.pardir, "checkpoints",
                     "tpu_r3_main", "params_final.npz")

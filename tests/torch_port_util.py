@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from geoformer_tpu import config as jcfg
@@ -485,3 +486,16 @@ def close_poses(got, ref, rot_deg=0.1, centre=0.02):
         assert abs(got[q]["num_inliers"] - ref[q]["num_inliers"]) <= 2, q
         ang, dc = pose_gap(got[q], ref[q])
         assert ang < rot_deg and dc < centre, (q, ang, dc)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread(monkeypatch):
+    """Each test's torch work on one thread, and one thread in the
+    processes it starts: under the suite's parallel workers, torch on every
+    core in every worker thrashes. Imported by a test module, it applies
+    to every test there (autouse); restored after each test."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    yield
+    torch.set_num_threads(threads)
