@@ -158,6 +158,20 @@ Phases, each printing its own lines and its seconds:
    CPU, and ba_solve_sharded / ba_solve_points_sharded on two gloo ranks
    on the card against one process, compared where the problem fixes the
    solution (camera 0 alone frozen leaves the scale free).
+16. sequence parallelism (one pair's rows split over the ranks of a seq
+   group, core/spmd.py), two gloo ranks on the one card: (a) the bench
+   configuration's forward (bf16, K1 and K2, the trained checkpoint) of a
+   textured pair at 480x640 and at 1920x2560 against one process with the
+   same RANSAC uniforms: match overlap >= 0.9 with >= 90 % of the common
+   keypoints within 0.05 px, has_H equal, H within 1e-2, the coarse
+   transformer's features within 2e-2 of the largest and the GAM's
+   within 1e-1 (bf16), K1 and K2 4 times a forward on each rank; the ms
+   a pair and the peak memory of each rank beside one process's; (b) the
+   headline recipe's train step (f32, TF32 off, K1-K5, random weights and
+   batch 2 from seed 66, the first step at LR 0) twice on two ranks
+   against one process at phase 15's bars, K1-K5 4 times a step on each
+   rank; (c) `cli infer --seq-shard 2` on the one card refuses (one card
+   a rank under NCCL) and `--seq-shard 1` runs.
 
 Phases 10, 12 and 13 time K1 on their own inputs beside its plain
 version and the library call (SDPA under the dense box mask); phase 12
@@ -174,10 +188,10 @@ the event loop.
 Phases 1-7 read no data file: weights come from a seed and images from
 numpy (phase 7 decodes only files it wrote). Phase 8 reads the trained
 checkpoint and the held-out photographs through the port's own loaders,
-phase 9 and 14 the checkpoint; phase 9 writes only under a temporary
-directory, as phases 10-13 do (their corpora, checkpoint, figures, bundle, scene
-and sequence are made there and read back). Phase 12 reads
-checkpoints/tpu_r5_depth2.
+phases 9, 14 and 16 the checkpoint; phase 9 writes only under a
+temporary directory, as phases 10-13 do (their corpora, checkpoint,
+figures, bundle, scene and sequence are made there and read back).
+Phase 12 reads checkpoints/tpu_r5_depth2.
 It needs only the standard library, torch and numpy. Any failure
 raises, so the exit code is nonzero; with no CUDA device it stops in
 phase 1. The last line of a successful run is one JSON object naming the
@@ -4109,6 +4123,317 @@ def phase_data_parallel(device):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 16 ------
+
+# (a): the bench configuration (bf16, 1024 matches and inliers, 256
+# hypotheses, K1 and K2) with the trained weights, one pair split over two
+# gloo ranks on the one card (NCCL refuses two ranks on one device)
+# against one process with the same RANSAC uniforms; at 480x640 and at
+# 1920x2560 (76,800 coarse tokens an image)
+SP = dict(world=2, hws=((480, 640), (1920, 2560)), forwards=3, seed=0,
+          pair_seed=3)
+# bf16 features of the two runs, by the largest gap over the largest
+# value: the coarse transformer's (f0, f1) within a few bf16 ulps; the
+# GAM's (g0, g1) also read windows placed by H, whose last bits differ
+SP_FEAT_REL = (2e-2, 2e-2, 1e-1, 1e-1)
+SP_H_REL = 1e-2
+# (b): the headline recipe's SP train step (f32, TF32 off, K1-K5) at its
+# coarse threshold, random weights and one batch of two pairs from seed 66
+# (as phase 15: at the live threshold random weights' matches turn on last
+# bits, which cuDNN's algorithms for a band and for the whole map differ
+# in; and from the trained weights Adam's sign-like first update flips
+# 0.78 % of one tensor's elements, whose gradients are at the noise floor);
+# the first step's LR is 0 (the recipe's warm-up), so the second moves the
+# weights at the full LR from the same weights
+SP_TRAIN = dict(hw=(480, 640), batch=2, lrs=(0.0, 1e-3),
+                gen_seed=TRAIN_SEED, bank_seed=TRAIN_SEED)
+
+
+def _sp_infer(device, pair, noise, seq: int) -> dict:
+    """The bench configuration's forward of ``pair`` on ``device`` with the
+    trained weights (their matches and fit are stable where random
+    weights' are not: a last-bit difference can turn a random-weight
+    match set and its RANSAC fit), its rows split over a seq group of
+    ``seq`` ranks (1: one process): one warm-up, then SP["forwards"] timed
+    forwards; ms a forward, launches a forward, peak GiB, the outputs
+    (host arrays)."""
+    from geoformer_tpu_torch.config import bench_config
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.eval import selfcheck as sc
+    from geoformer_tpu_torch.models.geoformer import gather_feats
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+
+    cfg = bench_config(use_bf16=True).replace(seq_axis="seq")
+    model = sc.load_model(cfg, str(CKPT), device).eval()
+    i0, i1 = (torch.from_numpy(a)[None, ..., None].to(device) for a in pair)
+    u = torch.from_numpy(noise).to(device)
+    small = pair[0].shape == SP["hws"][0]
+    with mesh.seq_groups(seq), torch.no_grad():
+        model(i0, i1, ransac_noise=u)                   # warm-up
+        _sync(device)
+        torch.cuda.reset_peak_memory_stats()
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(SP["forwards"]):
+            out = model(i0, i1, ransac_noise=u, return_feats=small)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3 / SP["forwards"]
+        launches = {k: v / SP["forwards"] for k, v in gk.LAUNCHES.items()}
+        feats = [f.float().cpu().numpy() for f in gather_feats(out.feats)]
+    host = lambda x: x.float().cpu().numpy()  # noqa: E731
+    return dict(ms=ms, launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                feats=feats, H=host(out.geo.H),
+                has_H=out.geo.has_H.cpu().numpy(),
+                i=out.matches.i_ids.cpu().numpy(),
+                j=out.matches.j_ids.cpu().numpy(),
+                valid=out.matches.valid.cpu().numpy(),
+                kp=np.concatenate([host(out.fine.mkpts0),
+                                   host(out.fine.mkpts1)], -1),
+                fine_valid=out.fine.valid.cpu().numpy())
+
+
+def _sp_train(device, batch, seq: int) -> dict:
+    """SP_TRAIN's steps of the headline recipe from random weights (seed
+    66) on ``batch`` (host arrays) on ``device``, rows split over ``seq``
+    ranks: each step's synchronized ms, launches and scalars, the peak
+    GiB, the state after them."""
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.config import TrainConfig
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.models import GeoFormer
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.train.optim import make_optimizer
+    from geoformer_tpu_torch.train.trainer import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = headline_config().replace(seq_axis="seq")
+    tc = TrainConfig(batch_size=SP_TRAIN["batch"], image_hw=SP_TRAIN["hw"])
+    model = weights.random_init(GeoFormer(cfg), TRAIN_SEED).to(device)
+    state = TrainState(model, make_optimizer(tc.optim, model.parameters()))
+    t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    gen = torch.Generator(device).manual_seed(SP_TRAIN["gen_seed"])
+    steps = []
+    with mesh.seq_groups(seq):
+        step = make_train_step(tc)
+        torch.cuda.reset_peak_memory_stats()
+        for lr in SP_TRAIN["lrs"]:
+            gk.reset_launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            scalars = step(state, t, lr, generator=gen)
+            _sync(device)
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              launches=dict(gk.LAUNCHES),
+                              scalars={k: float(v) for k, v in
+                                       scalars.items()}))
+    return dict(steps=steps,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                state={k: v.cpu().numpy() for k, v in
+                       state.model.state_dict().items()})
+
+
+def _sp_rank(rank, plan, device):
+    """Phase 16 on one rank of the seq group: (a) at both sizes, then
+    (b)."""
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    infer = {hw: _sp_infer(device, pair, plan["noise"][hw], SP["world"])
+             for hw, pair in plan["pairs"].items()}
+    torch.cuda.empty_cache()
+    return dict(infer=infer, train=_sp_train(device, plan["batch"],
+                                              SP["world"]))
+
+
+def _sp_match_gap(got, ref) -> dict:
+    """Overlap of the (i, j) match sets of the first pair, the share of
+    the common matches whose final keypoints agree within PARITY's px,
+    H's relative gap and has_H's agreement."""
+    def pairs(r):     # (i, j) -> final keypoints, None where gated
+        v = r["valid"][0]
+        return {(int(a), int(b)): k if fv else None for a, b, k, fv in zip(
+            r["i"][0][v], r["j"][0][v], r["kp"][0][v], r["fine_valid"][0][v])}
+
+    pg, pr = pairs(got), pairs(ref)
+    common = pg.keys() & pr.keys()
+    kp_ok = [np.abs(pg[c] - pr[c]).max() <= PARITY["kp_px"] for c in common
+             if pg[c] is not None and pr[c] is not None]
+    return dict(overlap=len(common) / max(len(pg.keys() | pr.keys()), 1),
+                matches=len(pr), kp_share=float(np.mean(kp_ok))
+                if kp_ok else 1.0,
+                H_rel=float(np.abs(got["H"] - ref["H"]).max()
+                            / np.abs(ref["H"]).max()),
+                has_H_equal=bool((got["has_H"] == ref["has_H"]).all()))
+
+
+def _sp_cli(device, tmp):
+    """(c): cli infer --seq-shard 2 on the one card refuses with the
+    documented error; --seq-shard 1 runs."""
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+    from geoformer_tpu_torch.utils.plotting import write_png
+
+    a, b = textured_pair((240, 320), 1)
+    paths = []
+    for name, img in (("a.png", a), ("b.png", b)):
+        write_png(str(tmp / name), (img * 255).astype(np.uint8))
+        paths.append(str(tmp / name))
+    runs = {}
+    for n in (2, 1):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "geoformer_tpu_torch.cli", "infer",
+             *paths, "--imsize", "240", "--seq-shard", str(n)],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        runs[n] = (r.returncode, r.stdout + r.stderr,
+                   time.perf_counter() - t0)
+    refusal = "--seq-shard 2 > 1 devices"
+    log("seq_parallel_cli", cards=torch.cuda.device_count(),
+        seq_shard_2_rc=runs[2][0], seq_shard_2_refused=refusal in runs[2][1],
+        seq_shard_1_rc=runs[1][0],
+        seq_shard_1=[ln for ln in runs[1][1].splitlines()
+                     if "matches in" in ln][:1],
+        seconds=[f"{runs[n][2]:.1f}" for n in (2, 1)])
+    if torch.cuda.device_count() == 1:
+        check(runs[2][0] != 0 and refusal in runs[2][1],
+              f"--seq-shard 2 on one card did not refuse:\n"
+              f"{runs[2][1][-2000:]}")
+    check(runs[1][0] == 0 and "matches in" in runs[1][1],
+          f"--seq-shard 1 failed:\n{runs[1][1][-2000:]}")
+
+
+def phase_seq_parallel(device):
+    """(a) the bench configuration's forward with one pair's rows split
+    over two gloo ranks on the one card, against one process, at 480x640
+    and 1920x2560; (b) the headline recipe's SP train step, two ranks
+    against one process; (c) cli infer --seq-shard on the one card."""
+    import tempfile
+
+    from geoformer_tpu_torch import weights
+    from geoformer_tpu_torch.config import bench_config
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.data.native import native_textures_mixed
+    from geoformer_tpu_torch.data.synthetic import make_pair_batch
+    from geoformer_tpu_torch.eval.synthetic import textured_pair
+    from geoformer_tpu_torch.models import GeoFormer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = bench_config(use_bf16=True)
+    rng = np.random.default_rng(SP["seed"])
+    noise = {hw: rng.random((1, cfg.geo.ransac_iters, min(
+        cfg.match.max_matches, hw[0] * hw[1] // 64))).astype(np.float32)
+        for hw in SP["hws"]}
+    pairs = {hw: textured_pair(hw, SP["pair_seed"]) for hw in SP["hws"]}
+    gen = torch.Generator(device).manual_seed(SP_TRAIN["gen_seed"])
+    base = torch.from_numpy(native_textures_mixed(
+        SP_TRAIN["batch"], *SP_TRAIN["hw"], seed=SP_TRAIN["bank_seed"]))
+    batch = {k: v.cpu().numpy() for k, v in
+             make_pair_batch(base.to(device), gen).items()}
+    one = {hw: _sp_infer(device, pair, noise[hw], 1)
+           for hw, pair in pairs.items()}
+    torch.cuda.empty_cache()
+    one_train = _sp_train(device, batch, 1)
+    before = {k: v.numpy() for k, v in weights.random_init(GeoFormer(
+        headline_config()), TRAIN_SEED).state_dict().items()}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = mesh.launch(_sp_rank, SP["world"], (dict(
+            pairs=pairs, noise=noise, batch=batch), str(device)),
+            backend="gloo", timeout=900, threads=4, init_dir=tmp)
+        group_s = time.perf_counter() - t0
+        for hw in SP["hws"]:
+            ref, got = one[hw], ranks[0]["infer"][hw]
+            gap = _sp_match_gap(got, ref)
+            feat_rel = [float(np.abs(a - b).max() / np.abs(b).max())
+                        for a, b in zip(got["feats"], ref["feats"])]
+            log("seq_parallel_infer", hw=hw, world=SP["world"],
+                backend="gloo", config="bench(bf16,max_matches=1024,"
+                "ransac_iters=256,max_inliers=1024,K1+K2),tpu_r3_main",
+                ms_per_pair_rank=[f"{r['infer'][hw]['ms']:.2f}"
+                                  for r in ranks],
+                one_process_ms_per_pair=f"{ref['ms']:.2f}",
+                peak_gib_rank=[f"{r['infer'][hw]['peak_gib']:.3f}"
+                               for r in ranks],
+                one_process_peak_gib=f"{ref['peak_gib']:.3f}",
+                launches_per_forward_rank=[r["infer"][hw]["launches"]
+                                           for r in ranks],
+                feat_rel_gap=[f"{x:.2e}" for x in feat_rel],
+                has_H=got["has_H"].tolist(),
+                **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+                   for k, v in gap.items()})
+            for r, res in enumerate(ranks):
+                lc = res["infer"][hw]["launches"]
+                for name, count in lc.items():
+                    want = 4 if name in FORWARD_KERNELS else 0
+                    check(count == want, f"rank {r} at {hw}: {name} "
+                          f"launched {count} times a forward, expected "
+                          f"{want}")
+                check(res["infer"][hw]["has_H"].tolist()
+                      == got["has_H"].tolist(), "the ranks' has_H differ")
+                check(np.array_equal(res["infer"][hw]["H"], got["H"]),
+                      "the ranks' H differ")
+            check(bool(ref["has_H"].all()), f"{hw}: no homography: the "
+                  "GAM's cross layers did not run on K1")
+            check(gap["has_H_equal"] and gap["H_rel"] <= SP_H_REL
+                  and gap["overlap"] >= PARITY["overlap"]
+                  and gap["kp_share"] >= PARITY["overlap"],
+                  f"{hw}: two ranks against one process: {gap}")
+            check(all(x <= bar for x, bar in zip(feat_rel, SP_FEAT_REL)),
+                  f"{hw}: feature gaps {feat_rel} over {SP_FEAT_REL}")
+        steps = [r["train"]["steps"] for r in ranks]
+        gaps = {}
+        for i, (s, ref) in enumerate(zip(steps[0], one_train["steps"])):
+            for k in ("loss", "grad_norm"):
+                gaps[f"{k}@{i + 1}"] = abs(s["scalars"][k]
+                                           - ref["scalars"][k]) \
+                    / abs(ref["scalars"][k])
+        rel, off, stats = _update_gap(ranks[0]["train"]["state"],
+                                      one_train["state"], before,
+                                      SP_TRAIN["lrs"][-1])
+        same = all(np.array_equal(ranks[0]["train"]["state"][k],
+                                  ranks[1]["train"]["state"][k])
+                   for k in ranks[0]["train"]["state"])
+        log("seq_parallel_train", world=SP["world"], backend="gloo",
+            config="headline(480x640,f32,batch2,K1-K5),seed66",
+            group_s=f"{group_s:.1f}",
+            ms_per_step_rank=[[f"{s['ms']:.1f}" for s in st]
+                              for st in steps],
+            one_process_ms_per_step=[f"{s['ms']:.1f}"
+                                     for s in one_train["steps"]],
+            peak_gib_rank=[f"{r['train']['peak_gib']:.3f}" for r in ranks],
+            one_process_peak_gib=f"{one_train['peak_gib']:.3f}",
+            loss=[s["scalars"]["loss"] for s in steps[0]],
+            one_process_loss=[s["scalars"]["loss"]
+                              for s in one_train["steps"]],
+            grad_norm=[s["scalars"]["grad_norm"] for s in steps[0]],
+            one_process_grad_norm=[s["scalars"]["grad_norm"]
+                                   for s in one_train["steps"]],
+            num_inliers=[s["scalars"]["num_inliers"] for s in steps[0]],
+            scalar_rel_gap={k: f"{v:.2e}" for k, v in gaps.items()},
+            update_rel_l2=f"{rel:.3e}", update_off_share=f"{off:.4f}",
+            batch_stats_excess=f"{stats:.2e}", ranks_equal=same,
+            launches_per_step_rank=[[s["launches"] for s in st]
+                                    for st in steps])
+        for r, st in enumerate(steps):
+            for i, s in enumerate(st):
+                for name, count in s["launches"].items():
+                    check(count == 4, f"rank {r} SP train step {i + 1}: "
+                          f"{name} launched {count} times, expected 4")
+        check(all(v <= DP_SCALAR_REL for v in gaps.values()),
+              f"SP train: loss/grad_norm against one process: {gaps}")
+        check(rel < DP_UPDATE["rel_l2"] and off < DP_UPDATE["off_share"],
+              f"SP train: update against one process: rel L2 {rel}, off "
+              f"share {off}")
+        check(stats == 0.0, f"SP train: BatchNorm statistics off by {stats}")
+        check(same, "SP train: the two ranks' states differ")
+        _sp_cli(device, Path(tmp))
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ main ---------
 
 _PA = "geoformer_tpu/ops/pallas_attention.py"
@@ -4161,6 +4486,7 @@ def main() -> int:
     timed("localize_slam", phase_localize_slam, device)
     timed("int8_alternates", phase_int8_alternates, device, ms_per_pair)
     timed("data_parallel", phase_data_parallel, device)
+    timed("seq_parallel", phase_seq_parallel, device)
     results = {**fwd_results, **bwd_results}
     path_launches = {"inference": launches, "training": train_launches}
     kernels = []

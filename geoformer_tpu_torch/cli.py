@@ -29,11 +29,14 @@ and defaults, plus ``--device`` (default ``cuda``):
 (``torchrun --nproc-per-node N -m geoformer_tpu_torch.cli train ...``):
 each rank runs on ``cuda:$LOCAL_RANK`` with NCCL (gloo with ``--device
 cpu``), ``--batch`` is the global batch (core/mesh.py, train/loop.py).
+``infer --seq-shard N`` (N > 1) starts N ranks itself (core/mesh.launch:
+NCCL on cuda:0 .. cuda:N-1, which must exist, or gloo with ``--device
+cpu``) and splits the pair's rows over them (sequence parallelism,
+core/spmd.py); the first rank alone prints and writes.
 
 Checkpoints are the JAX package's ``.npz`` files or the reference's torch
 ``.ckpt``/``.pth``/``.pt`` files; with no ``--ckpt`` the weights are random
-(seed 0). Flags and benchmarks that are not ported yet raise
-NotImplementedError naming their ROADMAP item.
+(seed 0).
 """
 
 from __future__ import annotations
@@ -54,10 +57,6 @@ _EVAL_PROTOCOLS = {
     "isc": (480, 3.0),
     "isc-cls": (480, 3.0),
 }
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _model(args):
@@ -232,22 +231,69 @@ def cmd_parity(args):
         sys.exit(1)
 
 
-def cmd_infer(args):
-    from geoformer_tpu_torch.eval.matcher import BatchedMatcher, load_gray
+def _seq_shard_backend(args) -> str:
+    """The backend of ``--seq-shard N``'s ranks: NCCL, one card a rank,
+    for a CUDA device (ValueError when N exceeds the visible cards, as
+    the JAX command asserts N <= its devices), gloo for the CPU;
+    ValueError for the int8 flags, before any rank starts."""
+    import torch
 
-    if args.seq_shard > 1:
-        _not_ported("--seq-shard", "ROADMAP queue 1 item 3, sequence "
-                    "parallelism")
+    if args.int8 or args.int8_full:
+        raise ValueError("--seq-shard: the int8 paths run replicated "
+                         "(their per-tensor scales read the whole tensor)")
+    if args.device == "cpu":
+        return "gloo"
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if args.seq_shard > cards:
+        raise ValueError(f"--seq-shard {args.seq_shard} > {cards} devices")
+    return "nccl"
+
+
+def cmd_infer(args):
+    from geoformer_tpu_torch.eval.matcher import load_gray
+
     # read the files before building the model: a bad path fails at once
-    im0, sc0 = load_gray(args.image0, args.imsize)
-    im1, sc1 = load_gray(args.image1, args.imsize)
+    images = (load_gray(args.image0, args.imsize),
+              load_gray(args.image1, args.imsize))
+    if args.seq_shard <= 1:
+        _infer(0, args, images, False)
+        return
+    import torch
+
+    from geoformer_tpu_torch.core import mesh
+
+    backend = _seq_shard_backend(args)
+    mesh.launch(_infer, args.seq_shard, (args, images, True),
+                backend=backend, timeout=3600,
+                threads=max(1, torch.get_num_threads() // args.seq_shard))
+
+
+def _infer(rank, args, images, seq: bool):
+    """infer on one process, or as rank ``rank`` of --seq-shard's ranks
+    (each pair's rows split over them; the first alone prints and
+    writes)."""
+    import contextlib
+
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher
+
+    (im0, sc0), (im1, sc1) = images
+    device = args.device
+    if seq and device != "cpu":
+        device = f"cuda:{rank}"
     cfg, model = _model(args)
-    matcher = BatchedMatcher(cfg, model, batch_size=1, device=args.device)
-    t0 = time.time()
-    (mk0, mk1, conf, geo), = matcher.match_batch([im0], [im1],
-                                                 return_geo=True)
+    with (mesh.seq_groups(args.seq_shard) if seq
+          else contextlib.nullcontext()) as layout:
+        matcher = BatchedMatcher(cfg, model, batch_size=1, device=device,
+                                 seq_group=layout)
+        t0 = time.time()
+        (mk0, mk1, conf, geo), = matcher.match_batch([im0], [im1],
+                                                     return_geo=True)
+    if rank:
+        return
     print(f"{len(mk0)} matches in {time.time() - t0:.2f}s "
-          f"(GAM: has_H={geo['has_H']} inliers={geo['num_inliers']})")
+          f"(GAM: has_H={geo['has_H']} inliers={geo['num_inliers']})",
+          flush=True)
     if args.draw:
         from geoformer_tpu_torch.utils.plotting import (
             render_matches,
@@ -276,7 +322,7 @@ def cmd_infer(args):
     mk1 = mk1 * np.array(sc1)
     if args.out:
         np.save(args.out, np.concatenate([mk0, mk1, conf[:, None]], axis=1))
-        print(f"saved -> {args.out}")
+        print(f"saved -> {args.out}", flush=True)
 
 
 def _export_device(args) -> str:
@@ -538,7 +584,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the match figure to this PNG")
     i.add_argument("--draw-geo", default=None,
                    help="write the GAM window view to this PNG")
-    i.add_argument("--seq-shard", type=int, default=0)
+    i.add_argument("--seq-shard", type=int, default=0,
+                   help="split the pair's rows over this many ranks "
+                        "(sequence-parallel high-res matching)")
     common(i)
     i.set_defaults(fn=cmd_infer)
 

@@ -3,9 +3,9 @@
 The port's own copy of the model and training dataclasses of
 geoformer_tpu/config.py, with the same fields and defaults, so a
 configuration written for one package reads the same in the other.
-Sequence parallelism (``seq_axis``), which the port does not run yet, is
-kept as a field so the dataclasses stay identical; the model raises
-NotImplementedError on it.
+``seq_axis`` names sequence parallelism, as in the JAX package: under a
+seq split of the ranks (core/mesh.seq_groups) the model splits each
+pair's rows over them (core/spmd.py); without one it changes nothing.
 """
 
 from __future__ import annotations

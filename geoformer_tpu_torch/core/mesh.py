@@ -13,11 +13,18 @@ guessed: NCCL for CUDA devices, gloo for the CPU, or gloo on CUDA tensors
 when the caller asks for it (two ranks on one card, which NCCL refuses).
 gloo all-reduces CUDA tensors itself; what it gathers goes through host
 memory (``comm_device``).
+
+Sequence parallelism (core/spmd.py) splits the world into ``world / seq``
+data replicas of ``seq`` ranks each, rank = data_rank * seq + seq_rank
+(``seq_groups``): the ranks of a seq group share one pair's image rows, the
+ranks of a data group hold the same rows of different pairs. Without that
+split seq_world() is 1 and the data group is the world.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -46,11 +53,80 @@ def world() -> int:
     return dist.get_world_size() if initialized() else 1
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqLayout:
+    """A (data x seq) split of the world: ``data`` replicas of ``seq``
+    ranks; this rank's seq group and data group."""
+
+    seq: int
+    data: int
+    seq_group: object
+    data_group: object
+
+
+_LAYOUT: Optional[SeqLayout] = None
+
+
+def layout() -> Optional[SeqLayout]:
+    """The split that seq_groups set up, or None."""
+    return _LAYOUT
+
+
+def seq_world() -> int:
+    """Ranks that share one pair's rows (1 without a split)."""
+    return _LAYOUT.seq if _LAYOUT is not None else 1
+
+
+def seq_rank() -> int:
+    return rank() % seq_world()
+
+
+def data_world() -> int:
+    """Data-parallel replicas: the world without a split."""
+    return world() // seq_world()
+
+
+def data_rank() -> int:
+    return rank() // seq_world()
+
+
+@contextlib.contextmanager
+def seq_groups(seq: int):
+    """Split the world into world / seq replicas of ``seq`` ranks (every
+    rank of the group calls it: dist.new_group is collective) and yield
+    the SeqLayout, which seq_world and the rest answer from until the end
+    of the block. ValueError unless ``seq`` divides the world."""
+    global _LAYOUT
+    w = world()
+    if seq < 1 or w % seq:
+        raise ValueError(f"a seq split of {seq} ranks does not divide the "
+                         f"world of {w}")
+    if _LAYOUT is not None:
+        raise RuntimeError("a seq split is already set up")
+    groups = {}
+    for d in range(w // seq):
+        ranks = [d * seq + s for s in range(seq)]
+        groups[("seq", d)] = dist.new_group(ranks) if w > 1 else None
+    for s in range(seq):
+        ranks = [d * seq + s for d in range(w // seq)]
+        groups[("data", s)] = dist.new_group(ranks) if w > 1 else None
+    _LAYOUT = SeqLayout(seq, w // seq, groups[("seq", rank() // seq)],
+                        groups[("data", rank() % seq)])
+    try:
+        yield _LAYOUT
+    finally:
+        _LAYOUT = None
+        for g in groups.values():
+            if g is not None:
+                dist.destroy_process_group(g)
+
+
 def local_shard_slice(total: int) -> slice:
     """This rank's slice of a global batch of ``total``: the JAX package's
-    per-process arithmetic (floor of total / world), by rank."""
-    per = total // world()
-    i = rank()
+    per-process arithmetic (floor of total / data replicas), by data rank
+    (by rank without a seq split)."""
+    per = total // data_world()
+    i = data_rank()
     return slice(i * per, (i + 1) * per)
 
 
@@ -138,6 +214,8 @@ def all_sum_flat(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def _rank_main(fn, rank_, world_, init_file, backend, threads, args, out):
     torch.set_num_threads(threads)
     try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank_)   # NCCL: one card a rank
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", rank=rank_,
             world_size=world_,
@@ -174,10 +252,11 @@ def launch(fn: Callable, world_size: int, args: tuple = (),
     """Run ``fn(rank, *args)`` in ``world_size`` spawned processes of one
     group (``backend``; file rendezvous in a fresh directory under
     ``init_dir``, else the temporary directory), each on ``threads`` torch
-    threads, and return their results by rank. ``fn`` and its arguments
-    and result are pickled: a module-level function, host data. A rank that
-    raises, or a run longer than ``timeout`` seconds, stops every rank and
-    raises RuntimeError with the failing rank's traceback."""
+    threads (under NCCL rank r on cuda:r), and return their results by
+    rank. ``fn`` and its arguments and result are pickled: a module-level
+    function, host data. A rank that raises, or a run longer than
+    ``timeout`` seconds, stops every rank and raises RuntimeError with the
+    failing rank's traceback."""
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     with tempfile.TemporaryDirectory(dir=init_dir) as tmp:

@@ -11,10 +11,19 @@ call draws the RANSAC samples from a generator seeded with 0, as the JAX
 matcher uses one fixed key per call. ``prewarm`` runs one forward per
 shape bucket, so that first-call costs (cuDNN's algorithm search, the
 allocator) land before a timed loop.
+
+In a process group (core/mesh.py) the matcher runs data-parallel
+(``data_parallel``, the JAX matcher's ``mesh``: each rank matches its
+slice of every batch and the results are gathered to every rank in the
+order of the pairs) or sequence-parallel (``seq_group``, the JAX
+matcher's ``seq_mesh``: each pair's rows split over the ranks of the seq
+split in force, core/mesh.seq_groups; every rank returns the same
+matches).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from typing import Dict, List, Optional, Tuple
@@ -23,6 +32,8 @@ import numpy as np
 import torch
 
 from geoformer_tpu_torch.config import GeoFormerConfig
+from geoformer_tpu_torch.core import dist as pdist
+from geoformer_tpu_torch.core import mesh
 from geoformer_tpu_torch.eval.clahe import clahe
 from geoformer_tpu_torch.eval.image_io import read_gray
 from geoformer_tpu_torch.models import GeoFormer
@@ -75,14 +86,59 @@ def bucket_shape(h: int, w: int, quant: int = 64) -> Tuple[int, int]:
 
 
 class BatchedMatcher:
-    """Batched GeoFormer matcher over padded buckets, on one device."""
+    """Batched GeoFormer matcher over padded buckets, on one device (a
+    rank's device in a process group).
+
+    ``data_parallel``: the batch is split over the ranks (batch_size must
+    divide by the data replicas, as the JAX matcher asserts for its mesh)
+    and each batch's results are gathered to every rank. ``seq_group``: the
+    SeqLayout of the seq split in force (core/mesh.seq_groups); each pair
+    runs with ``seq_axis`` set, its rows split over the group. The two are
+    mutually exclusive."""
 
     def __init__(self, config: GeoFormerConfig, model: GeoFormer,
-                 batch_size: int = 4, device="cuda"):
+                 batch_size: int = 4, device="cuda", seq_group=None,
+                 data_parallel: bool = False):
+        if seq_group is not None:
+            if data_parallel:
+                raise ValueError("data_parallel and seq_group are mutually "
+                                 "exclusive")
+            if seq_group is not mesh.layout():
+                raise ValueError("seq_group is not the seq split in force "
+                                 "(core/mesh.seq_groups)")
+            config = config.replace(seq_axis="seq")
+            model = copy.copy(model)    # the same parameters, seq_axis set
+            model.config = config
+        if data_parallel and mesh.seq_world() > 1:
+            raise ValueError("data_parallel under a seq split")
+        if data_parallel and batch_size % mesh.data_world():
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{mesh.data_world()} ranks")
         self.cfg = config
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
+        self.data_parallel = data_parallel and mesh.data_world() > 1
+
+    def _forward(self, i0, i1, m0, m1):
+        """The model on a padded batch (host arrays), RANSAC drawn from a
+        generator seeded with 0 for the whole batch; data-parallel: on this
+        rank's slice, with its rows of the batch's draw."""
+        dev = self.device
+        gen = torch.Generator(dev).manual_seed(0)
+        arrays = [torch.from_numpy(x).to(dev) for x in (i0, i1, m0, m1)]
+        noise = None
+        if self.data_parallel:
+            b, h, w, _ = i0.shape
+            cells = (h // self.cfg.coarse_scale) * (w // self.cfg.coarse_scale)
+            cap = self.cfg.match.max_matches
+            n = cells if cap <= 0 or cap >= cells else cap
+            sl = mesh.local_shard_slice(b)
+            noise = torch.rand((b, self.cfg.geo.ransac_iters, n),
+                               generator=gen, device=dev)[sl]
+            arrays = [x[sl] for x in arrays]
+        with torch.no_grad():
+            return self.model(*arrays, generator=gen, ransac_noise=noise)
 
     def pair_bucket(self, shape0, shape1) -> Tuple[int, int]:
         """The padded (H, W) a pair of (h, w) resized shapes lands in."""
@@ -136,20 +192,20 @@ class BatchedMatcher:
                 i1[j, :c.shape[0], :c.shape[1], 0] = c
                 m0[j, :a.shape[0] // s, :a.shape[1] // s] = 1.0
                 m1[j, :c.shape[0] // s, :c.shape[1] // s] = 1.0
-            gen = torch.Generator(self.device).manual_seed(0)
-            with torch.no_grad():
-                res = self.model(*(torch.from_numpy(x).to(self.device)
-                                   for x in (i0, i1, m0, m1)), generator=gen)
-            mk0 = res.fine.mkpts0.cpu().numpy()
-            mk1 = res.fine.mkpts1.cpu().numpy()
-            mc = res.fine.mconf.float().cpu().numpy()
-            valid = res.fine.valid.cpu().numpy()
+            res = self._forward(i0, i1, m0, m1)
+            got = {"mk0": res.fine.mkpts0, "mk1": res.fine.mkpts1,
+                   "mc": res.fine.mconf.float(), "valid": res.fine.valid,
+                   "H": res.geo.H, "has_H": res.geo.has_H,
+                   "num_inliers": res.geo.num_inliers}
+            got = {k: v.cpu().numpy() for k, v in got.items()}
+            if self.data_parallel:    # every rank's slice, in pair order
+                got = pdist.all_gather_metrics(got)
             for j in range(len(chunk0)):
-                v = valid[j]
-                row = (mk0[j][v], mk1[j][v], mc[j][v])
+                v = got["valid"][j]
+                row = (got["mk0"][j][v], got["mk1"][j][v], got["mc"][j][v])
                 if return_geo:
-                    row += ({"H": res.geo.H[j].cpu().numpy(),
-                             "has_H": bool(res.geo.has_H[j]),
-                             "num_inliers": int(res.geo.num_inliers[j])},)
+                    row += ({"H": got["H"][j],
+                             "has_H": bool(got["has_H"][j]),
+                             "num_inliers": int(got["num_inliers"][j])},)
                 out.append(row)
         return out

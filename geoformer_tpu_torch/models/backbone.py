@@ -9,6 +9,14 @@ statistics, or with batch statistics over all the images given (and
 updates the running ones) when ``train`` is set. With ``int8`` every
 convolution is an Int8Conv (eval-only: ``train`` then raises). Inputs and
 outputs keep the JAX layout (channels last); inside, the layers run NCHW.
+
+With ``seq`` (sequence parallelism, core/spmd.py) the input is this rank's
+band of image rows, a whole number of coarse rows, and so are the outputs:
+every k x k convolution takes its halo rows from the neighbouring bands
+(3 for the 7x7 stem, 1 for a 3x3), and the aligned-corner upsampling maps
+its output rows through the image's global heights (``_upsample``), which
+can reach one row past the band. BatchNorm's statistics in training are
+summed over every rank (models/layers.py), so each real row counts once.
 """
 
 from __future__ import annotations
@@ -19,8 +27,36 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from geoformer_tpu_torch.core import mesh, spmd
 from geoformer_tpu_torch.models.layers import BatchNorm, Conv, Int8Conv
 from geoformer_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+
+
+def _upsample(x: torch.Tensor, out_hw, seq: bool) -> torch.Tensor:
+    """Aligned-corner bilinear resize of NCHW ``x`` to ``out_hw``. With
+    ``seq``, x and the output are this rank's bands of maps n times their
+    heights: output row y reads input rows floor(y s) and the next, s =
+    (h - 1) / (oh - 1) over the global heights, one halo row on each
+    side; the two rows are blended by f32 weights (in place, at the input
+    width), then resized across by F.interpolate, within an ulp of its
+    whole-map result."""
+    if not seq:
+        return resize_bilinear_align_corners_nchw(x, out_hw)
+    n, r = mesh.seq_world(), mesh.seq_rank()
+    hb, ob = x.shape[2], out_hw[0]
+    h_in, h_out = hb * n, ob * n
+    xe = spmd.halo_rows(x, 1, 1)                 # global rows r*hb - 1 ...
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scale = torch.tensor(float(h_in - 1), **f32) / torch.tensor(
+        float(max(h_out - 1, 1)), **f32)
+    src = torch.arange(r * ob, (r + 1) * ob, **f32) * scale
+    i0 = src.long()
+    lam = (src - i0.float()).clamp(0.0, 1.0)[None, None, :, None]
+    i1 = i0 + (i0 < h_in - 1).long()
+    rows = xe.index_select(2, i0 - (r * hb - 1)).float().mul_(1 - lam)
+    rows = rows.add_(xe.index_select(2, i1 - (r * hb - 1)).float().mul_(lam))
+    return resize_bilinear_align_corners_nchw(rows.to(x.dtype),
+                                              (ob, out_hw[1]))
 
 
 def _eval_only(int8: bool, train: bool) -> None:
@@ -44,12 +80,13 @@ class BasicBlock(nn.Module):
             self.conv_down = conv(cin, planes, 1, stride, dtype)
             self.bn_down = BatchNorm(planes)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                seq: bool = False) -> torch.Tensor:
         _eval_only(self.int8, train)
-        y = F.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
+        y = F.relu(self.bn1(self.conv1(x, seq), train))
+        y = self.bn2(self.conv2(y, seq), train)
         if self.stride != 1:
-            x = self.bn_down(self.conv_down(x), train)
+            x = self.bn_down(self.conv_down(x, seq), train)
         return F.relu(x + y)
 
 
@@ -82,29 +119,27 @@ class ResNetFPN(nn.Module):
         self.l1_bn = BatchNorm(d2)
         self.l1_m2 = conv(d2, d1, 3, 1, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, 1] in [0, 1]. Returns (coarse [B, H/8, W/8, d3],
         fine [B, H/2, W/2, d1]), channels last."""
         _eval_only(self.int8, train)
         x = x.permute(0, 3, 1, 2)
-        x0 = F.relu(self.bn1(self.conv1(x), train))
-        x1 = self.layer1_1(self.layer1_0(x0, train), train)      # 1/2
-        x2 = self.layer2_1(self.layer2_0(x1, train), train)      # 1/4
-        x3 = self.layer3_1(self.layer3_0(x2, train), train)      # 1/8
+        x0 = F.relu(self.bn1(self.conv1(x, seq), train))
+        x1 = self.layer1_1(self.layer1_0(x0, train, seq), train, seq)  # 1/2
+        x2 = self.layer2_1(self.layer2_0(x1, train, seq), train, seq)  # 1/4
+        x3 = self.layer3_1(self.layer3_0(x2, train, seq), train, seq)  # 1/8
 
         x3_out = self.l3_out(x3)
         x2_out = self.l2_out(x2)
-        m2 = x2_out + resize_bilinear_align_corners_nchw(
-            x3_out, x2_out.shape[2:])
-        m2 = F.leaky_relu(self.l2_bn(self.l2_m1(m2), train), 0.01)
-        x2_out = self.l2_m2(m2)
+        m2 = x2_out + _upsample(x3_out, x2_out.shape[2:], seq)
+        m2 = F.leaky_relu(self.l2_bn(self.l2_m1(m2, seq), train), 0.01)
+        x2_out = self.l2_m2(m2, seq)
 
         x1_out = self.l1_out(x1)
-        m1 = x1_out + resize_bilinear_align_corners_nchw(
-            x2_out, x1_out.shape[2:])
-        m1 = F.leaky_relu(self.l1_bn(self.l1_m1(m1), train), 0.01)
-        x1_out = self.l1_m2(m1)
+        m1 = x1_out + _upsample(x2_out, x1_out.shape[2:], seq)
+        m1 = F.leaky_relu(self.l1_bn(self.l1_m1(m1, seq), train), 0.01)
+        x1_out = self.l1_m2(m1, seq)
         return x3_out.permute(0, 2, 3, 1), x1_out.permute(0, 2, 3, 1)
 
 
@@ -139,29 +174,29 @@ class ResNetFPN_16_4(nn.Module):
         self.l2_bn = BatchNorm(d3)
         self.l2_m2 = conv(d3, d2, 3, 1, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, 1] in [0, 1]. Returns (coarse [B, H/16, W/16, d4],
         fine [B, H/4, W/4, d2]), channels last."""
         _eval_only(self.int8, train)
-        x = F.relu(self.bn1(self.conv1(x.permute(0, 3, 1, 2)), train))
+        x = F.relu(self.bn1(self.conv1(x.permute(0, 3, 1, 2), seq), train))
         feats = []
         for li in (1, 2, 3, 4):
-            x = getattr(self, f"layer{li}_0")(x, train)
-            x = getattr(self, f"layer{li}_1")(x, train)
+            x = getattr(self, f"layer{li}_0")(x, train, seq)
+            x = getattr(self, f"layer{li}_1")(x, train, seq)
             feats.append(x)
         _, x2, x3, x4 = feats
         x4_out = self.l4_out(x4)
         x3_out = self.l3_out(x3)
-        m3 = self.l3_m1(x3_out + resize_bilinear_align_corners_nchw(
-            x4_out, x3_out.shape[2:]))
+        m3 = self.l3_m1(x3_out + _upsample(x4_out, x3_out.shape[2:], seq),
+                        seq)
         m3 = F.leaky_relu(self.l3_bn(m3, train), 0.01)
-        x3_out = self.l3_m2(m3)
+        x3_out = self.l3_m2(m3, seq)
         x2_out = self.l2_out(x2)
-        m2 = self.l2_m1(x2_out + resize_bilinear_align_corners_nchw(
-            x3_out, x2_out.shape[2:]))
+        m2 = self.l2_m1(x2_out + _upsample(x3_out, x2_out.shape[2:], seq),
+                        seq)
         m2 = F.leaky_relu(self.l2_bn(m2, train), 0.01)
-        x2_out = self.l2_m2(m2)
+        x2_out = self.l2_m2(m2, seq)
         return x4_out.permute(0, 2, 3, 1), x2_out.permute(0, 2, 3, 1)
 
 

@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from geoformer_tpu_torch.core import mesh, spmd
 from geoformer_tpu_torch.core.capacity import topk_select
 from geoformer_tpu_torch.models.layers import no_grad
 from geoformer_tpu_torch.ops.matching import dual_softmax
@@ -83,18 +84,27 @@ def coarse_match(feat_c0, feat_c1, thr: float, temperature: float = 0.1,
                  capacity: int = -1, mask0: Optional[torch.Tensor] = None,
                  mask1: Optional[torch.Tensor] = None,
                  force_one: bool = False,
-                 streaming: bool = True) -> CoarseMatches:
+                 streaming: bool = True, seq: bool = False) -> CoarseMatches:
     """Dual-softmax coarse matching and fixed-capacity extraction, streamed
-    or (streaming=False) through the dense confidence, which it returns."""
+    or (streaming=False) through the dense confidence, which it returns.
+    With ``seq`` (streamed only) the features are this rank's bands of the
+    token sets and the masks every token's [B, L]; the matches are every
+    rank's alike."""
     if not streaming:
         conf = dual_softmax(feat_c0, feat_c1, temperature, mask0, mask1)
         return extract_matches(conf, thr, capacity, force_one, mask0, mask1)
     b, l0, _ = feat_c0.shape
+    band = spmd.row_band(l0 * mesh.seq_world(), "tokens") if seq \
+        else slice(0, l0)
+    cut = (lambda m: None if m is None else m.reshape(b, -1)[:, band])
     row_best, j_ids, col_arg, conf00 = streaming_match_extract(
-        feat_c0, feat_c1, temperature, mask0, mask1)
-    mutual = torch.gather(col_arg, 1, j_ids) == \
-        torch.arange(l0, device=feat_c0.device)[None, :]
-    ids = _finalize_ids(row_best, j_ids, mutual, conf00, feat_c1.shape[1],
+        feat_c0, feat_c1, temperature, cut(mask0), cut(mask1), seq=seq)
+    mutual = torch.gather(col_arg, 1, j_ids) == torch.arange(
+        band.start, band.stop, device=feat_c0.device)[None, :]
+    if seq:
+        row_best, j_ids, mutual = (spmd.gather(x) for x in
+                                   (row_best, j_ids, mutual))
+    ids = _finalize_ids(row_best, j_ids, mutual, conf00, col_arg.shape[1],
                         thr, capacity, force_one, mask0, mask1)
     empty = torch.zeros((b, 0, 0), dtype=feat_c0.dtype,
                         device=feat_c0.device)

@@ -4,6 +4,13 @@ Counterpart of geoformer_tpu/models/fine.py: gather the 5x5 fine-resolution
 window around each matched coarse cell, fuse the coarse context
 (FinePreprocess), and decode the window-to-window confidence by its global
 argmax, gated by the threshold (fine_matching).
+
+Under sequence parallelism (``seq``, core/spmd.py) the fine maps and the
+coarse features are this rank's bands of rows and the matches every
+rank's alike: each rank fills the windows (and coarse features) of the
+matched cells whose rows it holds, reading a halo of window // 2 fine rows
+across its band's edges, and one sum over the seq group completes them.
+The fine map itself is never gathered; the stage after it is replicated.
 """
 
 from __future__ import annotations
@@ -14,10 +21,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from geoformer_tpu_torch.core import mesh, spmd
 from geoformer_tpu_torch.models.coarse_matching import (
     CoarseMatches,
     match_coords,
 )
+from geoformer_tpu_torch.models.geo_module import take_tokens
 from geoformer_tpu_torch.models.layers import Dense
 
 
@@ -32,22 +41,35 @@ class FineMatches(NamedTuple):
     valid: torch.Tensor
 
 
-def gather_windows(feat_f, ids, grid_w_c: int, stride: int, window: int):
+def gather_windows(feat_f, ids, grid_w_c: int, stride: int, window: int,
+                   seq: bool = False):
     """[B, M, W*W, C] fine-feature windows at coarse cells ``ids`` [B, M]
     (F.unfold with padding W//2, indexed at the cells). feat_f: [B, hf, wf,
-    C]."""
+    C]; with ``seq`` this rank's band of rows of it, the windows every
+    rank's alike."""
     b, hf, wf, c = feat_f.shape
     r = window // 2
-    padded = F.pad(feat_f, (0, 0, r, r, r, r))          # [B, hf+2r, wf+2r, C]
+    if seq:    # the band's rows and window // 2 of each neighbour's
+        padded = F.pad(spmd.halo_rows(feat_f, r, r, dim=1), (0, 0, r, r))
+    else:
+        padded = F.pad(feat_f, (0, 0, r, r, r, r))  # [B, hf+2r, wf+2r, C]
     wp = wf + 2 * r
     rows = (ids // grid_w_c) * stride                    # top-left in padded
     cols = (ids % grid_w_c) * stride
+    if seq:    # this band's rows of the padded map start at row0
+        row0 = mesh.seq_rank() * hf
+        own = (rows >= row0) & (rows < row0 + hf)
+        rows = torch.where(own, rows - row0, torch.zeros_like(rows))
     d = torch.arange(window, device=ids.device)
     lin = ((rows[..., None, None] + d[:, None]) * wp
            + cols[..., None, None] + d[None, :])         # [B, M, W, W]
     flat = padded.reshape(b, -1, c)
     win = torch.gather(flat, 1, lin.reshape(b, -1, 1).expand(-1, -1, c))
-    return win.reshape(b, ids.shape[1], window * window, c)
+    win = win.reshape(b, ids.shape[1], window * window, c)
+    if not seq:
+        return win
+    return spmd.seq_sum(torch.where(own[..., None, None], win,
+                                    torch.zeros_like(win)))
 
 
 class FinePreprocess(nn.Module):
@@ -68,18 +90,17 @@ class FinePreprocess(nn.Module):
 
     def forward(self, feat_f0, feat_f1, feat_c0, feat_c1,
                 matches: CoarseMatches, stride: int, grid_w0: int,
-                grid_w1: int):
+                grid_w1: int, seq: bool = False):
         w0 = gather_windows(feat_f0, matches.i_ids, grid_w0, stride,
-                            self.window)
+                            self.window, seq)
         w1 = gather_windows(feat_f1, matches.j_ids, grid_w1, stride,
-                            self.window)
+                            self.window, seq)
         if self.concat_coarse:
             ww = self.window * self.window
             outs = []
             for w, fc, ids in ((w0, feat_c0, matches.i_ids),
                                (w1, feat_c1, matches.j_ids)):
-                cc = self.down_proj(torch.gather(
-                    fc, 1, ids[..., None].expand(-1, -1, fc.shape[-1])))
+                cc = self.down_proj(take_tokens(fc, ids, seq))
                 cat = torch.cat([w.to(cc.dtype),
                                  cc[:, :, None, :].expand(-1, -1, ww, -1)],
                                 dim=-1)

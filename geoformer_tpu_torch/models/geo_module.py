@@ -17,6 +17,18 @@ layer then quantizes k_proj's input over the whole source token set (as
 the JAX package's box_window_call), on the gather path over the gathered
 windows (as its window_call): the two paths' scales differ where the
 largest source token lies in no window.
+
+Under sequence parallelism (``seq``, core/spmd.py) the features are this
+rank's bands of rows and the matches every rank's alike. RANSAC runs on
+every rank and the first rank's GeoState is broadcast (eigh on two
+processes or cards is not promised to give the same bits, and every later
+decision reads has_H, H and the inlier maps). A self layer's inlier KV
+set is filled by the ranks that hold its rows and completed by one sum
+(capacity-bounded, never [B, L, C]); a cross layer gathers the other
+image's pre-layer features and runs the band's queries at their global
+cells. Unlike the JAX package, which leaves its single-device box kernel
+under sequence parallelism, the port keeps K1 there (``use_pallas``): it
+takes any subset of queries with their centres.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from geoformer_tpu_torch.config import GeoModuleConfig
+from geoformer_tpu_torch.core import mesh, spmd
 from geoformer_tpu_torch.core.capacity import masked_select_capacity
 from geoformer_tpu_torch.geometry.homography import warp_points
 from geoformer_tpu_torch.geometry.ransac import ransac_homography
@@ -114,6 +127,21 @@ def _take(feat, idx):
     return out.reshape(*idx.shape, feat.shape[-1])
 
 
+def take_tokens(feat, idx, seq: bool):
+    """_take of global token ids ``idx`` [B, K] from ``feat``, this rank's
+    band of the tokens with ``seq``: each rank fills the entries whose
+    tokens it holds, zeros elsewhere, and one differentiable sum over the
+    seq group completes them (every rank's alike)."""
+    if not seq:
+        return _take(feat, idx)
+    lb = feat.shape[1]
+    start = mesh.seq_rank() * lb
+    own = (idx >= start) & (idx < start + lb)
+    part = _take(feat, (idx - start).clamp(0, lb - 1))
+    return spmd.seq_sum(torch.where(own[..., None], part,
+                                    torch.zeros_like(part)))
+
+
 class GeoModule(nn.Module):
     def __init__(self, cfg: GeoModuleConfig, d_model: int,
                  dtype=torch.float32):
@@ -130,23 +158,36 @@ class GeoModule(nn.Module):
     def forward(self, cnn_feat0, cnn_feat1, matches: CoarseMatches,
                 scale: int, sample_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                ransac_noise: Optional[torch.Tensor] = None):
+                ransac_noise: Optional[torch.Tensor] = None,
+                seq: bool = False):
         """cnn_feat0/1: [B, h, w, C] coarse CNN features (before the coarse
-        transformer). RANSAC takes sample_idx, else the uniforms of
-        ransac_noise [B, ransac_iters, max_matches], else draws from
-        generator. Returns (feat0 [B, L0, C], feat1 [B, L1, C], GeoState).
+        transformer; with ``seq`` this rank's bands of rows). RANSAC takes
+        sample_idx, else the uniforms of ransac_noise [B, ransac_iters,
+        max_matches], else draws from generator. Returns (feat0 [B, L0, C],
+        feat1 [B, L1, C], GeoState); with ``seq`` the features are the
+        bands' tokens.
         """
         cfg = self.cfg
-        b, h0, w0, c = cnn_feat0.shape
-        _, h1, w1, _ = cnn_feat1.shape
+        b, hb0, w0, c = cnn_feat0.shape
+        _, hb1, w1, _ = cnn_feat1.shape
+        n = mesh.seq_world() if seq else 1
+        h0, h1 = hb0 * n, hb1 * n
+        tok0 = spmd.row_band(h0) if seq else slice(0, h0)
+        tok1 = spmd.row_band(h1) if seq else slice(0, h1)
+        tok0 = slice(tok0.start * w0, tok0.stop * w0)   # rows -> tokens
+        tok1 = slice(tok1.start * w1, tok1.stop * w1)
         # the geometric fit is a hard decision: no gradient flows through
         # it (stop_gradient in the JAX package)
         with no_grad():
             state = _build_geo_state(matches, (h0, w0), (h1, w1), scale,
                                      cfg, sample_idx, generator,
                                      ransac_noise)
-        feat0 = add_position_encoding(cnn_feat0).reshape(b, h0 * w0, c)
-        feat1 = add_position_encoding(cnn_feat1).reshape(b, h1 * w1, c)
+            if seq:
+                state = GeoState(*spmd.broadcast_from_first(state))
+        feat0 = add_position_encoding(cnn_feat0, row0=tok0.start // w0
+                                      ).reshape(b, hb0 * w0, c)
+        feat1 = add_position_encoding(cnn_feat1, row0=tok1.start // w1
+                                      ).reshape(b, hb1 * w1, c)
 
         idx0, kv_ok0 = masked_select_capacity(state.map0, cfg.max_inliers)
         idx1, kv_ok1 = masked_select_capacity(state.map1, cfg.max_inliers)
@@ -157,34 +198,38 @@ class GeoModule(nn.Module):
         H = torch.where(state.has_H[:, None, None], state.H, eye)
         Hinv = torch.linalg.inv_ex(H)[0]
         r = cfg.window_size // 2
-        if cfg.use_pallas:
-            centers1 = _box_centers(H, (h0, w0), scale)
-            centers0 = _box_centers(Hinv, (h1, w1), scale)
+        # the band's queries at their global cells
+        if cfg.use_pallas:     # K1 takes contiguous centres
+            centers1 = _box_centers(H, (h0, w0), scale)[:, tok0].contiguous()
+            centers0 = _box_centers(Hinv, (h1, w1), scale)[:, tok1] \
+                .contiguous()
         else:
-            cells1, wmask1 = _window_cells(H, (h0, w0), (h1, w1), scale,
-                                           cfg.window_size)
-            cells0, wmask0 = _window_cells(Hinv, (h1, w1), (h0, w0), scale,
-                                           cfg.window_size)
+            cells1, wmask1 = (x[:, tok0] for x in _window_cells(
+                H, (h0, w0), (h1, w1), scale, cfg.window_size))
+            cells0, wmask0 = (x[:, tok1] for x in _window_cells(
+                Hinv, (h1, w1), (h0, w0), scale, cfg.window_size))
         sel = state.has_H[:, None, None]
         for li, name in enumerate(cfg.layer_names):
             layer = getattr(self, f"layer_{li}")
             if name == "self":
-                out0 = layer(feat0, _take(feat0, idx0), None, kv_ok0,
-                             mask_fill=-1e8)
-                out1 = layer(feat1, _take(feat1, idx1), None, kv_ok1,
-                             mask_fill=-1e8)
+                out0 = layer(feat0, take_tokens(feat0, idx0, seq), None,
+                             kv_ok0, mask_fill=-1e8)
+                out1 = layer(feat1, take_tokens(feat1, idx1, seq), None,
+                             kv_ok1, mask_fill=-1e8)
                 feat0 = torch.where(any0, out0, feat0)
                 feat1 = torch.where(any1, out1, feat1)
-            elif cfg.use_pallas:
-                out0 = layer.box_window_call(feat0, feat1, centers1,
+                continue
+            # both directions read the features from before the layer
+            src1, src0 = (spmd.gather(feat1), spmd.gather(feat0)) if seq \
+                else (feat1, feat0)
+            if cfg.use_pallas:
+                out0 = layer.box_window_call(feat0, src1, centers1,
                                              (h1, w1), r)
-                out1 = layer.box_window_call(feat1, feat0, centers0,
+                out1 = layer.box_window_call(feat1, src0, centers0,
                                              (h0, w0), r)
-                feat0 = torch.where(sel, out0, feat0)
-                feat1 = torch.where(sel, out1, feat1)
             else:
-                out0 = layer.window_call(feat0, _take(feat1, cells1), wmask1)
-                out1 = layer.window_call(feat1, _take(feat0, cells0), wmask0)
-                feat0 = torch.where(sel, out0, feat0)
-                feat1 = torch.where(sel, out1, feat1)
+                out0 = layer.window_call(feat0, _take(src1, cells1), wmask1)
+                out1 = layer.window_call(feat1, _take(src0, cells0), wmask0)
+            feat0 = torch.where(sel, out0, feat0)
+            feat1 = torch.where(sel, out1, feat1)
         return feat0, feat1, state

@@ -14,8 +14,19 @@ the streamed dual softmax, the dense one (``return_conf``, or
 ``matches.conf`` and ``matches1.conf``), or log-domain Sinkhorn with a
 learned dustbin score (``match_type='sinkhorn'``, dense). The int8 flags
 of the config (eval-only) put Int8Conv/Int8Dense in the backbone, the
-coarse and fine stacks and the GAM. Sequence parallelism raises
-NotImplementedError.
+coarse and fine stacks and the GAM.
+
+Sequence parallelism (``cfg.seq_axis`` under a seq split of the ranks,
+core/mesh.seq_groups; the counterpart of the JAX model under a mesh with
+that axis): every rank takes the whole pair and keeps its band of image
+rows, a whole number of coarse rows (core/spmd.py). The backbone, the
+coarse transformer and the GAM's layers run on the band's rows and
+tokens, the streamed extraction on the band's rows with exact merges;
+RANSAC, the fine stage and the matches are every rank's alike. ``feats``
+then holds the bands' tokens (``gather_feats`` joins them). It takes the
+streamed dual-softmax matcher alone, as in the JAX package, and the float
+paths alone (an int8 path's per-tensor scales would read every band).
+Without a split, ``seq_axis`` changes nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from geoformer_tpu_torch.config import GeoFormerConfig
+from geoformer_tpu_torch.core import spmd
 from geoformer_tpu_torch.models.backbone import build_backbone, fine_channels
 from geoformer_tpu_torch.models.coarse_matching import (
     CoarseMatches,
@@ -56,14 +68,17 @@ class MatchOutput(NamedTuple):
     feats: Tuple[torch.Tensor, ...] = ()
 
 
+def gather_feats(feats) -> Tuple[torch.Tensor, ...]:
+    """A sequence-parallel forward's ``feats`` with every band's tokens,
+    in token order (the feats themselves without a seq split)."""
+    with torch.no_grad():
+        return tuple(spmd.gather(f) for f in feats)
+
+
 class GeoFormer(nn.Module):
     def __init__(self, config: GeoFormerConfig = GeoFormerConfig()):
         super().__init__()
         cfg = config
-        if cfg.seq_axis is not None:
-            raise NotImplementedError(
-                "sequence parallelism is not ported yet (ROADMAP queue 1 "
-                "item 3, --seq-shard)")
         if tuple(cfg.backbone.resolution) != (cfg.coarse_scale,
                                               cfg.fine_scale):
             raise ValueError((cfg.backbone.resolution, cfg.coarse_scale,
@@ -137,6 +152,22 @@ class GeoFormer(nn.Module):
                              "gradient)")
         force_one = cfg.match.force_one_match or train
         streaming = cfg.match.streaming_extract and not return_conf
+        if cfg.seq_axis is not None and not (
+                streaming and cfg.match.match_type != "sinkhorn"):
+            raise ValueError("seq_axis requires streaming extraction (no "
+                             "dense [L, L] matrices exist to shard)")
+        seq = cfg.seq_axis is not None and spmd.active()
+        if seq and self.int8:
+            raise ValueError("the int8 paths run replicated: their "
+                             "per-tensor scales read the whole tensor, "
+                             "not a band of it")
+        band = spmd.row_band(hc, "coarse rows") if seq else slice(0, hc)
+        tokens = slice(band.start * wc, band.stop * wc)
+        rows = slice(band.start * cfg.coarse_scale,
+                     band.stop * cfg.coarse_scale) if seq else slice(None)
+        # the band's masks (the transformer); the matcher takes the whole
+        b0 = None if m0 is None else m0[:, tokens]
+        b1 = None if m1 is None else m1[:, tokens]
 
         def matcher(a, c):
             if cfg.match.match_type == "sinkhorn":
@@ -151,30 +182,33 @@ class GeoFormer(nn.Module):
                 return coarse_match(a, c, cfg.match.thr,
                                     cfg.match.dsmax_temperature,
                                     cfg.match.max_matches, m0, m1,
-                                    force_one=force_one)
+                                    force_one=force_one, seq=seq)
 
         # named ranges: the stages a profiler trace is read by
         with record_function("backbone"):
-            feats_c, feats_f = self.backbone(torch.cat([image0, image1]),
-                                             train)
+            feats_c, feats_f = self.backbone(
+                torch.cat([image0[:, rows], image1[:, rows]]), train, seq)
             cnn_c0, cnn_c1 = feats_c[:b], feats_c[b:]
             feat_f0, feat_f1 = feats_f[:b], feats_f[b:]
         with record_function("coarse_transformer"):
-            f0 = add_position_encoding(cnn_c0).reshape(b, hc * wc, -1)
-            f1 = add_position_encoding(cnn_c1).reshape(b, hc * wc, -1)
-            f0, f1 = self.loftr_coarse(f0, f1, m0, m1)
+            lb = tokens.stop - tokens.start
+            f0 = add_position_encoding(cnn_c0, row0=band.start).reshape(
+                b, lb, -1)
+            f1 = add_position_encoding(cnn_c1, row0=band.start).reshape(
+                b, lb, -1)
+            f0, f1 = self.loftr_coarse(f0, f1, b0, b1, seq=seq)
         with record_function("coarse_match_1"):
             matches1 = matcher(f0, f1)
         with record_function("gam"):
             g0, g1, geo_state = self.geo_module(cnn_c0, cnn_c1, matches1,
                                                 cfg.coarse_scale, sample_idx,
-                                                generator, ransac_noise)
+                                                generator, ransac_noise, seq)
         with record_function("coarse_match_2"):
             matches2 = matcher(g0, g1)
         with record_function("fine"):
             stride = cfg.coarse_scale // cfg.fine_scale
             w0, w1 = self.fine_preprocess(feat_f0, feat_f1, g0, g1, matches2,
-                                          stride, wc, wc)
+                                          stride, wc, wc, seq)
             m = w0.shape[1]
             ww = cfg.fine_match.window_size ** 2
             t0, t1 = self.loftr_fine(w0.reshape(b * m, ww, -1),

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from geoformer_tpu_torch.core import mesh
+from geoformer_tpu_torch.core import mesh, spmd
 from geoformer_tpu_torch.ops.quantize import int8_conv, int8_dense
 
 
@@ -47,7 +47,9 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """Bias-free k x k convolution with (k//2) zero padding, NCHW."""
+    """Bias-free k x k convolution with (k//2) zero padding, NCHW. With
+    ``seq`` the input is this rank's band of rows (core/spmd.py): the rows
+    above and below come from the neighbouring bands instead of zeros."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  dtype=torch.float32):
@@ -57,9 +59,12 @@ class Conv(nn.Module):
         self.padding = k // 2
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq: bool = False) -> torch.Tensor:
+        pad = self.padding
+        if seq and pad:    # the band and its halo; pad the columns alone
+            x, pad = spmd.halo_rows(x, pad, pad), (0, pad)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        stride=self.stride, padding=self.padding)
+                        stride=self.stride, padding=pad)
 
 
 class Int8Dense(Dense):
@@ -74,7 +79,9 @@ class Int8Conv(Conv):
     """Conv computed in dynamic int8, output in ``dtype`` (the JAX
     package's Int8Conv). Eval-only."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq: bool = False) -> torch.Tensor:
+        if seq:
+            raise ValueError("the int8 paths do not run on a band of rows")
         return int8_conv(x, self.weight, self.stride,
                          self.padding).to(self.dtype)
 

@@ -10,6 +10,11 @@ the JAX package, the residual sum is f32 after the first layer.
 attention (``forward``), gathered per-query windows (``window_call``) and
 the gather-free box window (``box_window_call``, kernel K1). With
 ``int8`` every projection and MLP layer is an Int8Dense (eval-only).
+
+With ``seq`` (sequence parallelism, core/spmd.py) the queries and sources
+of ``forward`` are this rank's bands of the token sets: the linear
+attentions sum their aggregates over the seq group, full attention
+gathers the sources (and their mask) first.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from geoformer_tpu_torch.core import spmd
 from geoformer_tpu_torch.models.layers import Dense, Int8Dense
 from geoformer_tpu_torch.ops import gam_kernels
 from geoformer_tpu_torch.ops.attention import (
@@ -66,18 +72,23 @@ class EncoderLayer(nn.Module):
         return x + y
 
     def forward(self, x, source, x_mask=None, source_mask=None,
-                zero_empty_rows: bool = False, mask_fill: float = -1e9):
+                zero_empty_rows: bool = False, mask_fill: float = -1e9,
+                seq: bool = False):
         """x: [B, L, C] queries; source: [B, S, C] keys/values."""
         if self.attention == "linear_flat":
             message = linear_attention_flat(
                 self.q_proj(x), self.k_proj(source), self.v_proj(source),
-                self.nhead, x_mask, source_mask)
+                self.nhead, x_mask, source_mask, seq=seq)
             return self._finish(x, message)
+        if seq and self.attention == "full":
+            source = spmd.gather(source)
+            if source_mask is not None:
+                source_mask = spmd.gather(source_mask)
         q = self._heads(self.q_proj(x))
         k = self._heads(self.k_proj(source))
         v = self._heads(self.v_proj(source))
         if self.attention == "linear":
-            message = linear_attention(q, k, v, x_mask, source_mask)
+            message = linear_attention(q, k, v, x_mask, source_mask, seq=seq)
         elif (self.use_kernel and x_mask is None and source_mask is not None
               and not zero_empty_rows):
             message = gam_kernels.masked_kv_attention(q, k, v, source_mask,
@@ -125,15 +136,16 @@ class LocalFeatureTransformer(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(
                 d_model, nhead, attention, dtype=dtype, int8=int8))
 
-    def forward(self, feat0, feat1, mask0=None, mask1=None):
+    def forward(self, feat0, feat1, mask0=None, mask1=None,
+                seq: bool = False):
         for i, name in enumerate(self.layer_names):
             layer = getattr(self, f"layer_{i}")
             if name == "self":
-                feat0 = layer(feat0, feat0, mask0, mask0)
-                feat1 = layer(feat1, feat1, mask1, mask1)
+                feat0 = layer(feat0, feat0, mask0, mask0, seq=seq)
+                feat1 = layer(feat1, feat1, mask1, mask1, seq=seq)
             else:
                 # sequential, as in the reference: feat1 attends to the
                 # already-updated feat0
-                feat0 = layer(feat0, feat1, mask0, mask1)
-                feat1 = layer(feat1, feat0, mask1, mask0)
+                feat0 = layer(feat0, feat1, mask0, mask1, seq=seq)
+                feat1 = layer(feat1, feat0, mask1, mask0, seq=seq)
         return feat0, feat1

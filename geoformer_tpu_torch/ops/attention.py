@@ -9,6 +9,12 @@ Counterpart of geoformer_tpu/ops/attention.py, in plain PyTorch:
 
 Shapes are [B, L, H, D] (batch, tokens, heads, head_dim), as in the JAX
 package. No function here is a kernel: they are einsums and matmuls.
+
+With ``seq`` (sequence parallelism, core/spmd.py) the linear attentions
+take this rank's band of the queries and of the sources: the KV and Ksum
+aggregates are sums over the source tokens, so each rank sums its own and
+one differentiable sum over the seq group completes both, and the overflow
+guard divides by the global source length, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -19,12 +25,29 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from geoformer_tpu_torch.core import mesh, spmd
+
 
 def _elu_feature_map(x: torch.Tensor) -> torch.Tensor:
     return F.elu(x) + 1.0
 
 
-def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
+def _source_sums(kv, ksum, seq: bool):
+    """(KV, Ksum) summed over the seq group with ``seq``, in one
+    all-reduce."""
+    if not seq:
+        return kv, ksum
+    flat = spmd.seq_sum(torch.cat([kv.flatten(1), ksum.flatten(1)], 1))
+    n = kv[0].numel()
+    return flat[:, :n].view_as(kv), flat[:, n:].view_as(ksum)
+
+
+def _source_len(s: int, seq: bool) -> int:
+    return s * mesh.seq_world() if seq else s
+
+
+def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6,
+                     seq: bool = False):
     """O(N) linear attention. q: [B, L, H, D]; k, v: [B, S, H, D];
     q_mask: [B, L]; kv_mask: [B, S]. Returns [B, L, H, D]."""
     Q = _elu_feature_map(q)
@@ -35,20 +58,20 @@ def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
         kvm = kv_mask[:, :, None, None].to(K.dtype)
         K = K * kvm
         v = v * kvm
-    s = v.shape[1]
+    s = _source_len(v.shape[1], seq)
     v_scaled = v / s  # overflow guard, as in the reference
-    KV = torch.einsum("bshd,bshv->bhdv", K, v_scaled)
-    Ksum = K.sum(dim=1)                                    # [B, H, D]
+    KV, Ksum = _source_sums(torch.einsum("bshd,bshv->bhdv", K, v_scaled),
+                            K.sum(dim=1), seq)             # Ksum [B, H, D]
     Z = 1.0 / (torch.einsum("blhd,bhd->blh", Q, Ksum) + eps)
     return torch.einsum("blhd,bhdv->blhv", Q, KV) * Z[..., None] * s
 
 
 def linear_attention_flat(q, k, v, nhead: int, q_mask=None, kv_mask=None,
-                          eps: float = 1e-6):
+                          eps: float = 1e-6, seq: bool = False):
     """linear_attention on [B, L, C] layouts: one [C, C] aggregate whose
     off-diagonal head blocks are zeroed. q: [B, L, C]; k, v: [B, S, C]."""
     c = q.shape[-1]
-    s = k.shape[1]
+    s = _source_len(k.shape[1], seq)
     d = c // nhead
     Q = _elu_feature_map(q)
     K = _elu_feature_map(k)
@@ -59,11 +82,11 @@ def linear_attention_flat(q, k, v, nhead: int, q_mask=None, kv_mask=None,
         K = K * kvm
         v = v * kvm
     v_scaled = v / s
-    kv = torch.einsum("bsc,bse->bce", K, v_scaled)
+    kv, ksum = _source_sums(torch.einsum("bsc,bse->bce", K, v_scaled),
+                            K.sum(dim=1), seq)              # ksum [B, C]
     blk = torch.arange(c, device=q.device) // d
     same = (blk[:, None] == blk[None, :]).to(kv.dtype)
     out = torch.einsum("blc,bce->ble", Q, kv * same)
-    ksum = K.sum(dim=1)                                     # [B, C]
     onehot = F.one_hot(blk, nhead).to(K.dtype).T            # [H, C]
     z = 1.0 / (torch.einsum("blc,bhc->blh", Q,
                             ksum[:, None, :] * onehot[None]) + eps)

@@ -12,6 +12,13 @@ supervision) a second streamed pass over [B, chunk, S] tiles. Every chunk
 runs under ``torch.utils.checkpoint``, as JAX runs it under
 ``jax.checkpoint``: the backward recomputes the chunk's tile, so peak memory
 holds one tile, not L / chunk of them.
+
+Under sequence parallelism (core/spmd.py) each rank streams its band of
+rows against the gathered columns, the column LSE merges over the seq
+group (ops/streaming_match.sim_lse), and the sums and counts of the two
+terms are summed: over the seq group into the global loss on every rank,
+or, with ``global_counts`` (the train steps), the counts over every rank
+while each rank keeps its own sums, its share of the loss.
 """
 
 from __future__ import annotations
@@ -22,11 +29,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from geoformer_tpu_torch.config import LossConfig
-from geoformer_tpu_torch.core import mesh
+from geoformer_tpu_torch.core import mesh, spmd
 from geoformer_tpu_torch.ops.streaming_match import (
     _NEG_INF,
     _prep,
     _tile,
+    gather_columns,
     sim_lse,
 )
 
@@ -56,6 +64,16 @@ def _neg_chunk(f0c, f1, rv, col_valid, inv: float, r_c, c, gj, gv,
     return (ln * nmask).sum(), nmask.sum()
 
 
+def _mean(total, cnt, seq: bool, global_counts: bool):
+    """total / max(count, 1) of the global batch: the counts over every
+    rank (``global_counts``), else sum and count over the seq group."""
+    if global_counts:
+        cnt = mesh.all_sum(cnt)
+    elif seq:
+        total, cnt = spmd.seq_sum(total), spmd.seq_sum(cnt.detach())
+    return total / torch.clamp(cnt, min=1.0)
+
+
 def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
                           temperature: float = 0.1,
                           mask0: Optional[torch.Tensor] = None,
@@ -72,19 +90,19 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
         feat0/feat1: [B, L, C] / [B, S, C] coarse features.
         gt_j: [B, L] GT column per image0 cell; gt_valid: [B, L] rows that
             carry a GT match.
-        axis_name: sequence parallelism, not ported yet (raises).
+        axis_name: sequence parallelism under a seq split (core/spmd.py):
+            feat0, gt_j, gt_valid and mask0 are this rank's band of rows,
+            feat1 and mask1 its band of columns (gathered here).
         global_counts: data parallelism: the positive and negative counts
             are summed over the ranks (no gradient), the sums stay this
             rank's, so the ranks' terms add up to the global batch's loss.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sequence-parallel streaming loss is not ported yet (ROADMAP "
-            "queue 1 item 3, --seq-shard)")
+    seq = axis_name is not None and spmd.active()
     b, l, cdim = feat0.shape
+    feat1, mask1 = gather_columns(feat1, mask1, seq)
     s = feat1.shape[1]
     chunk = max(1, min(chunk, l))
-    r, c = sim_lse(feat0, feat1, temperature, mask0, mask1, chunk)
+    r, c = sim_lse(feat0, feat1, temperature, mask0, mask1, chunk, seq)
     row_valid, col_valid, inv = _prep(feat0, mask0, mask1, temperature)
     col_ok = (torch.ones((b, s), dtype=torch.bool, device=feat0.device)
               if col_valid is None else col_valid)
@@ -101,8 +119,7 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
     w = (gt_valid.bool() & cell_ok).float()
     lp = (-torch.log(p_pos) if cfg.coarse_type == "cross_entropy"
           else _focal_pos(p_pos, cfg.focal_alpha, cfg.focal_gamma))
-    pos_cnt = mesh.all_sum(w.sum()) if global_counts else w.sum()
-    pos_loss = (lp * w).sum() / torch.clamp(pos_cnt, min=1.0)
+    pos_loss = _mean((lp * w).sum(), w.sum(), seq, global_counts)
     if cfg.coarse_type == "focal" and cfg.sparse_spvs:
         return cfg.pos_weight * pos_loss
 
@@ -118,7 +135,5 @@ def streaming_coarse_loss(feat0, feat1, gt_j, gt_valid, cfg: LossConfig,
             use_reentrant=False)
         ln_sum = ln_sum + part
         ln_cnt = ln_cnt + cnt
-    if global_counts:
-        ln_cnt = mesh.all_sum(ln_cnt)
-    neg_loss = ln_sum / torch.clamp(ln_cnt, min=1.0)
+    neg_loss = _mean(ln_sum, ln_cnt, seq, global_counts)
     return cfg.pos_weight * pos_loss + cfg.neg_weight * neg_loss

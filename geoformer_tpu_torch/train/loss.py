@@ -20,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from geoformer_tpu_torch.config import LossConfig
-from geoformer_tpu_torch.core import mesh
+from geoformer_tpu_torch.core import mesh, spmd
 from geoformer_tpu_torch.ops.fused_loss import streaming_coarse_loss
 
 
@@ -125,16 +125,28 @@ def geo_loss_streaming(feats, gt_j, gt_valid, fine_conf, fine_gt, fine_valid,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss = (focal(g0, g1) + focal(f0, f1)) * w_c + bce(fine) * w_f
     from the coarse features (f0, f1, g0, g1) and sparse GT, never building
-    a [B, L, S] matrix. sp_axis (sequence parallelism) is not ported yet."""
-    if sp_axis is not None:
-        raise NotImplementedError(
-            "sequence-parallel training loss is not ported yet (ROADMAP "
-            "queue 1 item 3, --seq-shard)")
+    a [B, L, S] matrix.
+
+    sp_axis under a seq split (core/spmd.py): feats are a sequence-parallel
+    forward's bands of tokens, the GT and the masks every token's; the
+    coarse terms run on this rank's band (ops/fused_loss.py) and the fine
+    term, every rank's alike, stays whole. With ``global_counts`` its
+    count, summed over every rank, then counts each of the seq group's
+    copies, so each rank's total is its share of the global loss and the
+    shares add up to it; without, every rank's total is the global loss."""
     f0, f1, g0, g1 = feats
+    if sp_axis is not None and spmd.active():
+        b = gt_j.shape[0]
+        band = spmd.row_band(gt_j.shape[1], "tokens")
+        gt_j, gt_valid = gt_j[:, band], gt_valid[:, band]
+        mask0, mask1 = (None if m is None else m.reshape(b, -1)[:, band]
+                        for m in (mask0, mask1))
     lc = streaming_coarse_loss(g0, g1, gt_j, gt_valid, cfg, temperature,
-                               mask0, mask1, global_counts=global_counts)
+                               mask0, mask1, axis_name=sp_axis,
+                               global_counts=global_counts)
     ld = streaming_coarse_loss(f0, f1, gt_j, gt_valid, cfg, temperature,
-                               mask0, mask1, global_counts=global_counts)
+                               mask0, mask1, axis_name=sp_axis,
+                               global_counts=global_counts)
     lf = fine_loss(fine_conf, fine_gt, fine_valid, cfg, global_counts)
     total = (lc + ld) * cfg.coarse_weight + lf * cfg.fine_weight
     return total, {"loss_c": lc, "loss_d": ld, "loss_f": lf, "loss": total}

@@ -23,6 +23,26 @@ the global batch from the shared generator and sliced, and after the
 backward one all-reduce sums the gradient and the scalars over the ranks
 before the clip and AdamW, so every rank takes the same update.
 shard_train_step wraps a step for a caller that holds the global batch.
+
+Sequence parallelism (``seq_axis`` under core/mesh.seq_groups; the JAX
+steps' ``sp_axis=cfg.seq_axis``): the ranks of a seq group take the same
+pairs, each its band of rows (models/geoformer.py). The convention of the
+gradient is the data-parallel one above, and it holds the count:
+
+- each rank's loss is its share of the global loss, and the shares add up
+  to it: a coarse term's sums are the rank's rows', its counts every
+  rank's; the fine term, every rank's alike, divides by a count summed
+  over every rank, which counts each of the seq group's copies, so it
+  enters the sum once;
+- every collective's backward sums the ranks' cotangents (core/spmd.py),
+  so a band's gradient gathers what every rank's share took from it;
+- after the backward the one all-reduce sums the gradients and the
+  scalars over every rank (the data and the seq ranks alike).
+
+The RANSAC uniforms are drawn for the global batch and sliced by data
+rank, so a seq group's ranks draw alike. The validation steps return the
+global values on every rank (the losses' sums and counts summed over the
+seq group).
 """
 
 from __future__ import annotations
@@ -123,15 +143,15 @@ def _global_noise(cfg: GeoFormerConfig, batch, sample_idx, generator):
     """In a group of several ranks with no injected samples: the GAM's
     RANSAC uniforms [B, ransac_iters, capacity] drawn for the global batch
     from ``generator`` (which every rank seeds alike) as the one-process
-    step draws them, and this rank's rows of them; else None (the model
-    draws)."""
+    step draws them, and this rank's rows of them (its data rank's); else
+    None (the model draws)."""
     if mesh.world() == 1 or sample_idx is not None:
         return None
     b, h, w, _ = batch["image0"].shape
     cells = (h // cfg.coarse_scale) * (w // cfg.coarse_scale)
     cap = cfg.match.max_matches
     n = cells if cap <= 0 or cap >= cells else cap
-    total = b * mesh.world()
+    total = b * mesh.data_world()
     u = torch.rand((total, cfg.geo.ransac_iters, n), generator=generator,
                    device=batch["image0"].device)
     return u[mesh.local_shard_slice(total)]
@@ -140,7 +160,8 @@ def _global_noise(cfg: GeoFormerConfig, batch, sample_idx, generator):
 def _batch_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of per-pair values over the global batch; in a group of
     several ranks, this rank's share of it (its sum over the global batch
-    size), which _update sums over the ranks."""
+    size, times the seq group's size: the group's ranks hold the same
+    pairs), which _update sums over the ranks."""
     x = x.float()
     if mesh.world() == 1:
         return x.mean()

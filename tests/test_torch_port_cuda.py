@@ -869,3 +869,51 @@ def test_sharded_bundle_adjustment_of_two_ranks_on_the_card(dev, tmp_path):
             np.testing.assert_array_equal(x, y)
     for got, ref in zip(res[0], refs):
         _same_solution(got, ref)
+
+
+def test_seq_halo_backbone_of_two_ranks_on_the_card(dev, tmp_path):
+    """Sequence parallelism on the card: two gloo ranks on the one card
+    split a 128x160 pair's rows; each band's backbone maps (eval mode, f32,
+    TF32 off) equal one process's on the card within 1e-4 (cuDNN picks
+    its algorithms by shape, so a band and the whole map sum in other
+    orders), the summed gradients by relative L2 within 1e-4."""
+    from geoformer_tpu_torch.core import mesh
+    from torch_port_ranks import narrow_config, sp_backbone
+
+    rng = np.random.default_rng(0)
+    imgs = rng.random((2, 128, 160, 1)).astype(np.float32)
+    grads = (rng.normal(size=(2, 16, 20, 32)).astype(np.float32),
+             rng.normal(size=(2, 64, 80, 16)).astype(np.float32))
+    args = (narrow_config(), imgs, False, grads, "cuda:0")
+    ref = sp_backbone(0, 1, *args)
+    res = mesh.launch(sp_backbone, 2, (2,) + args, init_dir=str(tmp_path),
+                      timeout=300)
+    for got in res:
+        for k in ("coarse", "fine"):
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+        for k, v in ref["grads"].items():
+            rel = np.linalg.norm(got["grads"][k] - v) / np.linalg.norm(v)
+            assert rel < 1e-4, (k, rel)
+
+
+def test_seq_extraction_merges_of_two_ranks_on_the_card(dev, tmp_path):
+    """The row-sharded extraction's LSE and first-wins argmax merges on
+    CUDA tensors (two gloo ranks on the one card): ids equal to one
+    process's on the card, the planted tie across the band edge resolved
+    to the lower global row."""
+    from geoformer_tpu_torch.core import mesh
+    from torch_port_ranks import extract_inputs, sp_extract
+
+    args = (*extract_inputs(), 8, 1e-4, 16, "cuda:0")
+    ref = sp_extract(0, 1, *args)
+    res = mesh.launch(sp_extract, 2, (2,) + args, init_dir=str(tmp_path),
+                      timeout=300)
+    for got in res:
+        for k in ("j_ids", "col_arg"):
+            np.testing.assert_array_equal(got[k], ref[k], k)
+        for k in ("i_ids", "j_ids", "valid"):
+            np.testing.assert_array_equal(got["ids"][k], ref["ids"][k], k)
+        np.testing.assert_allclose(got["row_best"], ref["row_best"],
+                                   rtol=2e-5, atol=1e-8)
+        assert (got["col_arg"][:, 9] == 3).all()

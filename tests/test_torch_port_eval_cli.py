@@ -82,16 +82,23 @@ def test_infer_saves_what_the_jax_cli_saves(pair, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["infer", "a.png", "b.png", "--seq-shard", "2"], "--seq-shard"),
-    (["infer", "a.png", "b.png", "--int8-full", "--seq-shard", "4"],
-     "item 3"),
+    (["infer", "a.png", "b.png", "--seq-shard", "2", "--device", "cuda"],
+     "--seq-shard 2 > 1 devices"),
+    (["infer", "a.png", "b.png", "--int8-full", "--seq-shard", "4",
+      "--device", "cpu"], "int8"),
 ])
-def test_unported_flags_and_benchmarks_raise(pair, argv, match):
-    """Flags the port does not take yet raise and name their ROADMAP item:
-    after the int8 flags, only --seq-shard is left."""
+def test_unported_flags_and_benchmarks_raise(pair, argv, match,
+                                             monkeypatch):
+    """Every flag is ported; the combinations --seq-shard refuses raise
+    before any rank starts: more ranks than cards (here one card, as on
+    the card's machine), and the int8 paths, which run replicated."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     argv = [str(pair / a) if a.endswith(".png") else a for a in argv]
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(argv + ["--device", "cpu"])
+    with pytest.raises(ValueError, match=match):
+        cli.main(argv)
 
 
 def test_infer_fails_on_a_missing_file_before_the_model(tmp_path):

@@ -240,12 +240,16 @@ def test_batched_matcher_pads_and_returns_unpadded_matches(run):
 @pytest.mark.parametrize("field,value", [
     ("seq_axis", "seq"), ("coarse", "int8")])
 def test_unported_options_raise(run, field, value):
-    """Sequence parallelism is not ported (it names its ROADMAP item); the
-    int8 paths are eval-only, so a train-mode forward raises."""
+    """Sequence parallelism takes the streamed matcher alone: with
+    seq_axis the dense path raises the JAX assertion's message (without a
+    seq split the streamed forward is the replicated one,
+    tests/test_torch_port_seq_parallel.py); the int8 paths are eval-only,
+    so a train-mode forward raises."""
     cfg = port_config(run["cfg"])
     if field == "seq_axis":
-        with pytest.raises(NotImplementedError, match="item 3"):
-            GeoFormer(cfg.replace(seq_axis=value))
+        model = GeoFormer(cfg.replace(seq_axis=value))
+        with pytest.raises(ValueError, match="streaming extraction"):
+            model(t(run["img0"]), t(run["img1"]), return_conf=True)
         return
     model = GeoFormer(cfg.replace(coarse=dataclasses.replace(cfg.coarse,
                                                              int8=True)))

@@ -47,6 +47,11 @@ def test_port_file_imports_only_torch_numpy_stdlib(path):
     assert not others, (path, others)
 
 
+def test_the_walk_covers_the_sequence_parallel_modules():
+    for rel in ("core/spmd.py", "core/mesh.py", "core/dist.py"):
+        assert PORT / rel in FILES, rel
+
+
 def test_every_port_module_imports_without_jax():
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in PORT.rglob("*.py")]

@@ -106,10 +106,13 @@ def test_streaming_coarse_loss_value_and_grads_match_jax(name, masked):
 
 
 def test_streaming_coarse_loss_raises_on_axis_name():
+    """axis_name is ported: without a seq split (core/mesh.seq_groups) it
+    is the replicated loss, bit for bit (the split itself:
+    tests/test_torch_port_seq_train.py)."""
     f0, f1, gt_j, gt_valid, _, _ = _stream_inputs(1, False)
-    with pytest.raises(NotImplementedError):
-        streaming_coarse_loss(t(f0), t(f1), t(gt_j), t(gt_valid),
-                              tcfg.LossConfig(), axis_name="seq")
+    args = (t(f0), t(f1), t(gt_j), t(gt_valid), tcfg.LossConfig())
+    assert torch.equal(streaming_coarse_loss(*args, axis_name="seq"),
+                       streaming_coarse_loss(*args))
 
 
 @pytest.mark.parametrize("weighted", [False, True])

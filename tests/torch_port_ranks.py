@@ -80,9 +80,10 @@ def _state(cfg, flat, image_hw, batch_size):
     from geoformer_tpu_torch.models import GeoFormer
     from geoformer_tpu_torch.train.optim import make_optimizer
     from geoformer_tpu_torch.train.trainer import TrainState
-    from geoformer_tpu_torch.weights import load_jax_params
+    from geoformer_tpu_torch.weights import load_jax_params, random_init
 
-    model = load_jax_params(GeoFormer(cfg), flat)
+    model = random_init(GeoFormer(cfg), 0) if flat is None \
+        else load_jax_params(GeoFormer(cfg), flat)
     tc = TrainConfig(batch_size=batch_size, image_hw=image_hw)
     return tc, TrainState(model, make_optimizer(tc.optim,
                                                 model.parameters()))
@@ -233,6 +234,285 @@ def ba_scene(seed: int, C: int = 4, P: int = 64, pose_noise: float = 0.02,
                 obs_pt=obs_pt.astype(np.int64),
                 obs_uv=uv.astype(np.float32),
                 obs_valid=np.ones(C * P, bool))
+
+
+# ------------------------------------------------ sequence parallelism ----
+# Each function below runs under a seq split of ``seq`` ranks
+# (core/mesh.seq_groups; seq=1 in the test's own process gives the
+# one-process reference of the same code) and returns its results
+# gathered over the seq group, so that every rank's are the whole
+# tensors, comparable with the reference's.
+
+
+def narrow_config():
+    """The port's copy of tests/torch_port_util.small_config (which needs
+    the JAX package's config): the narrow model of the CPU tests."""
+    from geoformer_tpu_torch import config as c
+
+    return c.GeoFormerConfig(
+        backbone=c.BackboneConfig(initial_dim=16, block_dims=(16, 24, 32)),
+        coarse=c.CoarseTransformerConfig(
+            d_model=32, nhead=4, layer_names=("self", "cross") * 2),
+        fine=c.FineTransformerConfig(d_model=16, nhead=2),
+        match=c.MatchConfig(thr=1e-4, max_matches=64),
+        geo=c.GeoModuleConfig(nhead=2, ransac_iters=32, max_inliers=64),
+        fine_match=c.FineMatchConfig(thr=1e-3))
+
+
+def extract_inputs():
+    """Integer-valued (x 1/4) features [2, 32, 16] and masks: every dot
+    product is exact, so two equal rows tie exactly. Row 3 (the first
+    band of two) and row 20 (the second) are equal and closest to column
+    9."""
+    rng = np.random.default_rng(7)
+    b, l, c = 2, 32, 16
+    f0 = (rng.integers(-2, 3, (b, l, c)) * 0.25).astype(np.float32)
+    f1 = (rng.integers(-2, 3, (b, l, c)) * 0.25).astype(np.float32)
+    f0[:, 20] = f0[:, 3]
+    f1[:, 9] = 2 * f0[:, 3]
+    m0 = np.ones((b, l), np.float32)
+    m1 = np.ones((b, l), np.float32)
+    m0[1, 30], m1[1, 5] = 0.0, 0.0
+    return f0, f1, m0, m1
+
+
+def _model(cfg, flat, seed=0, seq_axis="seq"):
+    from geoformer_tpu_torch.models import GeoFormer
+    from geoformer_tpu_torch.weights import load_jax_params, random_init
+
+    model = GeoFormer(cfg.replace(seq_axis=seq_axis))
+    return random_init(model, seed) if flat is None \
+        else load_jax_params(model, flat)
+
+
+def _rows(x, n_coarse, scale, dim=1):
+    """This rank's band of rows of ``x`` (a map of n_coarse * scale rows
+    on ``dim``)."""
+    from geoformer_tpu_torch.core import spmd
+
+    band = spmd.row_band(n_coarse)
+    return x.narrow(dim, band.start * scale, (band.stop - band.start)
+                    * scale)
+
+
+def sp_backbone(rank, seq, cfg, images, train, grads, device="cpu"):
+    """The backbone on this rank's band of ``images`` [2B, H, W, 1]
+    (train: on batch statistics) and a backward of sum(out * grads), the
+    parameters' gradients summed over the ranks, on ``device``: the
+    gathered coarse and fine maps, the running statistics, the
+    gradients."""
+    from geoformer_tpu_torch.core import mesh, spmd
+
+    torch.backends.cudnn.allow_tf32 = False
+    with mesh.seq_groups(seq):
+        bb = _model(cfg, None).backbone.to(device)
+        x = _rows(torch.from_numpy(images).to(device),
+                  images.shape[1] // 8, 8)
+        c, f = bb(x, train, seq=seq > 1)
+        gc, gf = (_rows(torch.from_numpy(g).to(device),
+                        images.shape[1] // 8, k)
+                  for g, k in zip(grads, (1, 4)))
+        ((c * gc).sum() + (f * gf).sum()).backward()
+        named = [(k, p.grad) for k, p in bb.named_parameters()]
+        g = dict(zip([k for k, _ in named], mesh.all_sum_flat(
+            [v for _, v in named])))
+        out = dict(coarse=_np(spmd.gather(c.detach(), 1)),
+                   fine=_np(spmd.gather(f.detach(), 1)),
+                   grads={k: _np(v) for k, v in g.items()},
+                   stats={k: _np(v) for k, v in bb.state_dict().items()
+                          if "running" in k})
+    return out
+
+
+def sp_transformer(rank, seq, cfg, coarse, masks):
+    """The position encoding and the coarse transformer on this rank's
+    band of coarse maps ``coarse`` [2B, hc, wc, C] with token masks
+    ``masks`` [2, B, L]: the gathered (f0, f1)."""
+    from geoformer_tpu_torch.core import mesh, spmd
+    from geoformer_tpu_torch.models.position import add_position_encoding
+
+    with mesh.seq_groups(seq):
+        tf = _model(cfg, None).loftr_coarse
+        b = coarse.shape[0] // 2
+        band = spmd.row_band(coarse.shape[1])
+        x = torch.from_numpy(coarse)[:, band]
+        w = coarse.shape[2]
+        toks = slice(band.start * w, band.stop * w)
+        f = add_position_encoding(x, row0=band.start).reshape(2 * b, -1,
+                                                              x.shape[-1])
+        m0, m1 = (torch.from_numpy(m)[:, toks] for m in masks)
+        with torch.no_grad():
+            f0, f1 = tf(f[:b], f[b:], m0, m1, seq=seq > 1)
+            return [_np(spmd.gather(x)) for x in (f0, f1)]
+
+
+def sp_extract(rank, seq, f0, f1, m0, m1, chunk, thr, capacity,
+               device="cpu"):
+    """streaming_match_extract on this rank's rows and columns (the row
+    statistics gathered) and coarse_match's ids, on ``device``."""
+    from geoformer_tpu_torch.core import mesh, spmd
+    from geoformer_tpu_torch.models.coarse_matching import coarse_match
+    from geoformer_tpu_torch.ops.streaming_match import (
+        streaming_match_extract,
+    )
+
+    with mesh.seq_groups(seq):
+        band = spmd.row_band(f0.shape[1])
+        whole = [torch.from_numpy(x).to(device) for x in (f0, f1, m0, m1)]
+        a, b, ma, mb = (x[:, band] for x in whole)
+        with torch.no_grad():
+            rb, j, ca, c00 = streaming_match_extract(a, b, 0.1, ma, mb,
+                                                     chunk, seq=seq > 1)
+            m = coarse_match(a, b, thr, 0.1, capacity, whole[2], whole[3],
+                             seq=seq > 1)
+            return dict(row_best=_np(spmd.gather(rb)),
+                        j_ids=_np(spmd.gather(j)), col_arg=_np(ca),
+                        conf00=_np(c00),
+                        ids={k: _np(v) for k, v in m._asdict().items()
+                             if k != "conf"})
+
+
+def _forward_out(out, feats):
+    from geoformer_tpu_torch.models.geoformer import gather_feats
+
+    res = dict(geo={k: _np(v) for k, v in out.geo._asdict().items()},
+               matches={k: _np(v) for k, v in out.matches._asdict().items()
+                        if k != "conf"},
+               matches1={k: _np(v) for k, v in
+                         out.matches1._asdict().items() if k != "conf"},
+               fine={k: _np(v) for k, v in out.fine._asdict().items()})
+    if feats:
+        res["feats"] = [_np(f) for f in gather_feats(out.feats)]
+    return res
+
+
+def _forward_in_split(cfg, flat, batch, noise, seed):
+    model = _model(cfg, flat, seed)
+    t = _tensors(batch)
+    with torch.no_grad():
+        out = model(t["image0"], t["image1"], t.get("mask0"),
+                    t.get("mask1"), return_feats=True,
+                    ransac_noise=torch.from_numpy(noise))
+    return _forward_out(out, True)
+
+
+def sp_forward(rank, seq, cfg, flat, batch, noise, seed=0):
+    """The GeoFormer forward with seq_axis set (weights ``flat``, else
+    random from ``seed``) on ``batch`` (images, masks) with the RANSAC
+    uniforms ``noise``: the gathered feats, the GeoState, both passes'
+    matches and the fine matches."""
+    from geoformer_tpu_torch.core import mesh
+
+    with mesh.seq_groups(seq):
+        return _forward_in_split(cfg, flat, batch, noise, seed)
+
+
+def sp_forward_2d(rank, seq, cfg, batch, noise, seed=0):
+    """sp_forward on a (data x seq) split: this rank's data slice of the
+    batch (and of the uniforms), each pair's rows over its seq group."""
+    from geoformer_tpu_torch.core import mesh
+
+    with mesh.seq_groups(seq):
+        sl = mesh.local_shard_slice(batch["image0"].shape[0])
+        return _forward_in_split(cfg, None, {k: v[sl] for k, v in
+                                             batch.items()}, noise[sl], seed)
+
+
+def sp_refusals(rank, seq, cfg, batch):
+    """The forwards that a seq split refuses, by the ValueError each
+    raises: an int8 model, the dense matcher (return_conf) and the
+    sinkhorn matcher."""
+    import dataclasses
+
+    from geoformer_tpu_torch.config import with_int8
+    from geoformer_tpu_torch.core import mesh
+
+    t = _tensors(batch)
+    cases = [("int8", with_int8(cfg, False, True), {}),
+             ("dense", cfg, {"return_conf": True}),
+             ("sinkhorn", cfg.replace(match=dataclasses.replace(
+                 cfg.match, match_type="sinkhorn")), {})]
+    refused = []
+    with mesh.seq_groups(seq):
+        for name, c, kw in cases:
+            try:
+                with torch.no_grad():
+                    _model(c, None)(t["image0"], t["image1"], **kw)
+            except ValueError as e:
+                if "int8" in str(e) or "streaming extraction" in str(e):
+                    refused.append(name)
+    return refused
+
+
+def sp_matcher(rank, seq, mode, cfg, imgs0, imgs1, batch_size):
+    """BatchedMatcher on the CPU: ``mode`` "data" (data_parallel over the
+    ranks), "seq" (seq_group), or "one" (neither)."""
+    import contextlib
+
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.eval.matcher import BatchedMatcher
+
+    model = _model(cfg, None, seq_axis=None)
+    split = mesh.seq_groups(seq) if mode == "seq" \
+        else contextlib.nullcontext()
+    with split as layout:
+        m = BatchedMatcher(cfg, model, batch_size, "cpu",
+                           seq_group=layout if mode == "seq" else None,
+                           data_parallel=mode == "data")
+        return m.match_batch(imgs0, imgs1, return_geo=True)
+
+
+def sp_collectives(rank, seq, x, weights):
+    """spmd's differentiable collectives on this rank's band of ``x``
+    [L, C]: loss_r = sum(gather(xb) * W[0][r]) + sum(halo_rows(xb, 1, 2)
+    * W[1][r]) + sum(seq_sum(xb) * W[2][r]), each rank its own weights;
+    the gradient of the sum of the ranks' losses by x, gathered."""
+    from geoformer_tpu_torch.core import mesh, spmd
+
+    with mesh.seq_groups(seq):
+        r = mesh.seq_rank()
+        band = spmd.row_band(x.shape[0])
+        xb = torch.from_numpy(x)[band].clone().requires_grad_(True)
+        w = [torch.from_numpy(ws[r]) for ws in weights]
+        loss = ((spmd.gather(xb, 0) * w[0]).sum()
+                + (spmd.halo_rows(xb, 1, 2, dim=0) * w[1]).sum()
+                + (spmd.seq_sum(xb) * w[2]).sum())
+        loss.backward()
+        return _np(spmd.gather(xb.grad, 0))
+
+
+def sp_step(rank, seq, kind, cfg, flat, batch, lr=0.0, sample_idx=None,
+            seed=None):
+    """One step with seq_axis set on a seq split of ``seq`` ranks (the
+    data ranks, if any, take their slices of the global batch): ``kind``
+    "train" or "depth_train" (the scalars, state and summed gradients
+    after it, _after), "val" or "depth_val" (the scalars; depth_val also
+    its pair data). RANSAC: ``sample_idx`` of the global batch, else a
+    generator seeded ``seed``."""
+    from geoformer_tpu_torch.core import mesh
+    from geoformer_tpu_torch.train import trainer
+
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    idx = None if sample_idx is None else torch.from_numpy(
+        np.array(sample_idx))
+    with mesh.seq_groups(seq):
+        b, h, w, _ = batch["image0"].shape
+        tc, state = _state(cfg.replace(seq_axis="seq"), flat, (h, w), b)
+        t = _tensors(batch)
+        if kind in ("train", "depth_train"):
+            make = trainer.make_train_step if kind == "train" \
+                else trainer.make_depth_train_step
+            scalars = trainer.shard_train_step(make(tc))(
+                state, t, lr, sample_idx=idx, generator=gen)
+            return _after(state, scalars)
+        if kind == "val":
+            out = trainer.make_val_step(tc)(state, t, sample_idx=idx,
+                                            generator=gen)
+            return {k: float(v) for k, v in out.items()}
+        scalars, pairs = trainer.make_depth_val_step(tc)(
+            state, t, sample_idx=idx, generator=gen)
+        return dict(scalars={k: float(v) for k, v in scalars.items()},
+                    pairs={k: _np(v) for k, v in pairs.items()})
 
 
 def jobs(rank, todo):
