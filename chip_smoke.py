@@ -108,7 +108,14 @@ Phases, each printing its own lines and its seconds:
    each pose AUC within 0.05 of the port's CPU sweep on the same corpus,
    with the JAX record beside it, prec@5e-04 >= 0.99 and 512 matches a
    pair, with the pose estimator's ms and host synchronisations per
-   batch; K1 and K2 at the 80x80 grid on the gate's own inputs against
+   batch; the same batches through the host pose estimator
+   (pose_backend="host", eval/pose.py), K1/K2 at 4 a val step, each AUC
+   within 0.05 of the port's CPU sweep with that backend (CPU_REF_HOST),
+   no more pairs without a pose than that sweep, its ms and RANSAC
+   iterations a pair beside the card's name and power limit; the host
+   estimator's fixed check on the CPU tests' synthetic sets (solution
+   counts, inliers and iterations as on a CPU); K1 and K2 at the 80x80
+   grid on the gate's own inputs against
    their plain versions; one depth train step of the trained checkpoint
    on a val batch, where RANSAC finds homographies and the cross layers
    get gradients through K4/K5; and K3, K4 and K5 against their plain
@@ -271,17 +278,21 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 # ------------------------------------------------------------ phase 1 ------
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
     check(torch.cuda.is_available(), "no CUDA device: the port runs on the "
           "card only (the CPU tests cover its plain versions)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = _card()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2828,6 +2839,19 @@ def phase_depth(device):
             agg = depth_loop.run_depth_validation(val_fn, gate_state, vb)
         gate_launches = dict(gk.LAUNCHES)
 
+        # the same batches through the host pose estimator
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        hstats = {}
+        with _depth_instrumented(depth_loop, gk) as hrec:
+            val_fn = depth_loop.make_depth_val_step(TrainConfig(
+                batch_size=dg.BATCH, image_hw=(dg.IMSIZE, dg.IMSIZE)))
+            agg_host = depth_loop.run_depth_validation(
+                val_fn, gate_state, vb, pose_backend="host",
+                pose_stats=hstats)
+        host_sweep_s = time.perf_counter() - t0
+        host_launches = dict(gk.LAUNCHES)
+
     train_k = {name: 4 for name in gk.LAUNCHES}
     val_k = {name: 4 for name in FORWARD_KERNELS}
     _per_call_launches(rec["train"], "depth train", train_k, DEPTH["steps"])
@@ -2891,6 +2915,30 @@ def phase_depth(device):
           f"reference {dg.CPU_REF} (tol {dg.GATE_TOL}), prec@5e-04 "
           f"{agg['prec@5e-04']}, {agg['val_num_matches']} matches a pair")
 
+    _per_call_launches(hrec["val"], "depth gate host val", val_k, dg.BATCHES)
+    agg_host.update(dg.host_fields(hstats))
+    log("depth_gate_host", checkpoint="tpu_r5_depth2",
+        pairs=dg.BATCHES * dg.BATCH, pose_backend="host",
+        auc_host=[round(agg_host[k], 4) for k in dg.AUCS],
+        auc_device=[round(a, 4) for a in aucs],
+        cpu_reference_host=[round(dg.CPU_REF_HOST[k], 4) for k in dg.AUCS],
+        delta=[round(agg_host[k] - dg.CPU_REF_HOST[k], 4) for k in dg.AUCS],
+        tol=dg.GATE_TOL, prec=agg_host["prec@5e-04"],
+        host_ms_per_pair=f"{agg_host['host_ms_per_pair']:.1f}",
+        pose_ms=[f"{x:.1f}" for x in hstats["ms"]],
+        ransac_iters_per_pair=agg_host["ransac_iters_per_pair"],
+        ransac_iters=hstats["iters"], failed_pairs=agg_host["failed_pairs"],
+        cpu_failed_pairs=dg.CPU_HOST_FAILED,
+        val_step_ms=[f"{t:.1f}" for t, _ in hrec["val"]],
+        sweep_s=f"{host_sweep_s:.1f}", launches=host_launches,
+        card=_card())
+    check(dg.gate(agg_host, "host"), f"depth gate, host backend: pose AUC "
+          f"{[agg_host[k] for k in dg.AUCS]} against the CPU reference "
+          f"{dg.CPU_REF_HOST} (tol {dg.GATE_TOL}), {agg_host['failed_pairs']}"
+          f" pairs without a pose (CPU: {dg.CPU_HOST_FAILED}), prec@5e-04 "
+          f"{agg_host['prec@5e-04']}")
+    _host_pose_fixed_check()
+
     # K1 and K2 at the depth grid on the gate's first val step's inputs
     q, k, v, centers, grid = kept["box_window_attention_fwd"][0][:5]
     _k1_vs_plain(gk, q, k, v, centers, grid, "depth_kernels",
@@ -2901,6 +2949,85 @@ def phase_depth(device):
     _depth_live_step(gk, device, gate_state, vb[0])
     del gate_state, vb
     torch.cuda.empty_cache()
+
+
+# The host pose estimator on the sets of its CPU tests
+# (tests/test_torch_port_pose_host.py, eval/synthetic.py), as a CPU
+# computes them (numpy 2.0.2, Python 3.12): the real solutions of the 20
+# five-tuples, and for the twelve two-view sets the inliers, the RANSAC's
+# iterations and the (t, R) errors in degrees.
+HOST_POSE_SOLUTIONS = (6, 6, 4, 6, 4, 4, 4, 6, 6, 6, 6, 6, 4, 6, 6, 4, 6, 6,
+                       4, 6)
+HOST_POSE_SETS = (
+    (300, 1, 0.0, 0.0), (240, 29, 0.0, 0.0), (180, 142, 0.0, 0.0),
+    (201, 79, 2.3775628945230016, 0.5902411305244532),
+    (144, 446, 2.192329432223076, 0.21798983879778636),
+    (126, 875, 3.259742060369207, 1.7691958711421323),
+    (115, 1000, 6.361736940517815, 1.9064613644298019),
+    (89, 1000, 1.94532612392685, 0.9240292712466469),
+    (75, 1000, 1.5335237054940793, 0.34530767266261087),
+    (300, 1, 0.0, 0.0), (240, 29, 0.0, 0.0), (180, 142, 0.0, 0.0))
+HOST_POSE_DEG = 1e-3     # as the CPU test holds errors to cv2's
+
+
+def _host_pose_fixed_check():
+    """The 5-point solver, the RANSAC and recover_pose on the card's host,
+    on the CPU tests' sets: equal solution counts, the true E among the
+    solutions (1e-8), equal inliers and iterations, errors within
+    HOST_POSE_DEG of the CPU's; recover_pose on a noise-free set with 25
+    points behind camera 0 keeps the 300 in front and the true R and t."""
+    from geoformer_tpu_torch.eval import pose as ppose
+    from geoformer_tpu_torch.eval.synthetic import five_tuples, pose_sets
+    from geoformer_tpu_torch.geometry import five_point as fp
+
+    t0 = time.perf_counter()
+    counts, e_gap = [], 0.0
+    for x1, x2, E_true in five_tuples(20, 20):
+        E, valid = fp.essential_five_point(x1[None], x2[None])
+        sols = E[0][valid[0]]
+        counts.append(len(sols))
+        e_gap = max(e_gap, min(min(np.abs(e - E_true).max(),
+                                   np.abs(e + E_true).max()) for e in sols))
+    got = []
+    for uv0, uv1, K, T in pose_sets(0):
+        iters = []
+        t_err, R_err, inl = ppose.pose_error_for_pair(uv0, uv1, K, K, T,
+                                                      iters=iters)
+        got.append((int(inl.sum()), iters[0], t_err, R_err))
+    # recover_pose: set 0 (no noise, no outliers) and 25 points behind
+    uv0, uv1, K, T = pose_sets(0)[0]
+    rng = np.random.default_rng(5)
+    X = rng.uniform([-2, -2, -9], [2, 2, -4], (25, 3))
+    R, t = T[:3, :3], T[:3, 3]
+    b0 = X @ K.T
+    b1 = (X @ R.T + t) @ K.T
+    uv0 = np.r_[uv0, b0[:, :2] / b0[:, 2:]]
+    uv1 = np.r_[uv1, b1[:, :2] / b1[:, 2:]]
+    Kinv = np.linalg.inv(K)
+    x1 = (np.c_[uv0, np.ones(len(uv0))] @ Kinv.T)[:, :2]
+    x2 = (np.c_[uv1, np.ones(len(uv1))] @ Kinv.T)[:, :2]
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    n, R_got, t_got, mask = fp.recover_pose(tx @ R, x1, x2, 1e9)
+    r_gap = float(np.abs(R_got - R).max())
+    t_gap = float(np.abs(t_got[:, 0] - t / np.linalg.norm(t)).max())
+    ms = (time.perf_counter() - t0) * 1e3
+    log("host_pose_check", solutions=counts, true_e_gap=f"{e_gap:.2e}",
+        sets=[(g[0], g[1], round(g[2], 6), round(g[3], 6)) for g in got],
+        recover_pose=dict(count=n, behind_kept=int(mask[300:].sum()),
+                          r_gap=f"{r_gap:.2e}", t_gap=f"{t_gap:.2e}"),
+        ms=f"{ms:.0f}", numpy=np.__version__)
+    check(tuple(counts) == HOST_POSE_SOLUTIONS,
+          f"5-point solution counts {counts}")
+    check(e_gap < 1e-8, f"5-point: true E {e_gap} from the solutions")
+    for i, (g, w) in enumerate(zip(got, HOST_POSE_SETS)):
+        check(g[:2] == w[:2], f"host pose set {i}: inliers, iterations "
+              f"{g[:2]}, on a CPU {w[:2]}")
+        check(abs(g[2] - w[2]) <= HOST_POSE_DEG
+              and abs(g[3] - w[3]) <= HOST_POSE_DEG,
+              f"host pose set {i}: errors {g[2:]}, on a CPU {w[2:]}")
+    check(n == 300 and not mask[300:].any() and r_gap < 1e-9
+          and t_gap < 1e-9, f"recover_pose: {n} in front, R {r_gap}, "
+          f"t {t_gap}")
 
 
 def _depth_live_step(gk, device, state, batch):

@@ -36,3 +36,18 @@ def topk_select(score: torch.Tensor, valid: torch.Tensor, capacity: int):
     order = torch.sort(masked, dim=1, descending=True, stable=True).indices
     idx = order[:, :capacity]
     return idx, torch.gather(valid, 1, idx)
+
+
+def scatter_onehot_2d(shape, rows: torch.Tensor, cols: torch.Tensor,
+                      valid: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A dense [H, W] map with ones at the flat cells rows[k] * W + cols[k]
+    of the valid k; a flat index in [-H*W, 0) counts from the end, one
+    outside [-H*W, H*W) is dropped (JAX's scatter with mode="drop")."""
+    n = shape[0] * shape[1]
+    lin = rows.long() * shape[1] + cols.long()
+    lin = torch.where(lin < 0, lin + n, lin)
+    lin = torch.where(valid & (lin >= 0) & (lin < n), lin,
+                      torch.full_like(lin, n))
+    flat = torch.zeros(n + 1, dtype=dtype, device=rows.device)
+    flat[lin] = 1
+    return flat[:n].reshape(shape)

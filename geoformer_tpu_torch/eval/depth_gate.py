@@ -19,6 +19,12 @@ It prints one JSON record, the JAX record and the CPU reference beside
 it, and exits 1 when a pose AUC is more than GATE_TOL from CPU_REF on
 either side, prec@5e-04 is under 0.99 or a pair has fewer than 512 matches.
 
+The host backend (run_depth_validation(pose_backend="host"): the
+reference's 5-point RANSAC on the host, eval/pose.py) is held by the same
+rule to CPU_REF_HOST, and at most CPU_HOST_FAILED pairs without a pose,
+in chip_smoke.py's depth phase; host_fields summarizes the estimator's
+ms, RANSAC iterations and failed pairs a sweep records (pose_stats).
+
 CPU_REF is this gate's own sweep on a CPU, on the corpus the port renders
 (tests/torch_port_depth_reference.py port). The JAX record is no
 two-sided bar: the JAX package's own sweep of the same checkpoint on a
@@ -67,7 +73,13 @@ JAX_RECORD = {"auc@5": 0.5891861254815012, "auc@10": 0.7475432788254693,
 # and the pose RANSAC's samples from other streams
 CPU_REF = {"auc@5": 0.7930448249680921, "auc@10": 0.8183974124840461,
            "auc@20": 0.831073706242023}
-GATE_TOL = 0.05          # per AUC, on either side of CPU_REF
+# the same sweep with the host pose estimator, on the matches of the same
+# val steps (tests/torch_port_depth_reference.py port), and its pairs
+# without a pose
+CPU_REF_HOST = {"auc@5": 0.7524903254583478, "auc@10": 0.8449951627291739,
+                "auc@20": 0.8912475813645869}
+CPU_HOST_FAILED = 0
+GATE_TOL = 0.05          # per AUC, on either side of the CPU reference
 AUCS = ("auc@5", "auc@10", "auc@20")
 PREC_MIN = 0.99
 IMSIZE, DEPTH_PAD = 640, 640
@@ -101,12 +113,26 @@ def load_state(device) -> TrainState:
                                             model.parameters()))
 
 
-def gate(rec: dict) -> bool:
-    """Each pose AUC of the validation record ``rec`` within GATE_TOL of
-    CPU_REF, prec@5e-04 at least PREC_MIN and 512 matches a pair."""
-    return (all(abs(rec[k] - CPU_REF[k]) <= GATE_TOL for k in AUCS)
+def gate(rec: dict, pose_backend: str = "device") -> bool:
+    """Each pose AUC of the validation record ``rec`` within GATE_TOL of the
+    backend's CPU reference, prec@5e-04 at least PREC_MIN, 512 matches a
+    pair and, on the host backend, at most CPU_HOST_FAILED pairs without a
+    pose."""
+    host = pose_backend == "host"
+    ref = CPU_REF_HOST if host else CPU_REF
+    return (all(abs(rec[k] - ref[k]) <= GATE_TOL for k in AUCS)
             and rec["prec@5e-04"] >= PREC_MIN
-            and rec["val_num_matches"] >= 512)
+            and rec["val_num_matches"] >= 512
+            and (not host or rec["failed_pairs"] <= CPU_HOST_FAILED))
+
+
+def host_fields(stats: dict) -> dict:
+    """The host estimator's means a pair and failed pairs, of the
+    ``pose_stats`` a host-backend run_depth_validation filled."""
+    return {"host_ms_per_pair": sum(stats["ms"]) / max(len(stats["ms"]), 1),
+            "ransac_iters_per_pair": (sum(stats["iters"])
+                                      / max(len(stats["iters"]), 1)),
+            "failed_pairs": stats["failed"]}
 
 
 def depth_gate(corpus: Optional[str] = None, device="cuda") -> dict:

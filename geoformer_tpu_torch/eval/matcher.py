@@ -4,7 +4,8 @@ Counterpart of geoformer_tpu/eval/matcher.py. ``load_gray`` reads an image
 file (eval/image_io.py in place of cv2.imread), resizes its shorter edge to
 ``imsize`` on the /8 grid (ops/resize.resize_linear_u8 in place of
 cv2.resize) and returns the scale factors back to the file's frame;
-``enhance_retinal`` is the JAX package's retinal enhancement.
+``enhance_retinal`` is the JAX package's retinal enhancement, and
+``ratio_preserving_resize`` its resize-then-crop-or-pad helper.
 ``BatchedMatcher`` zero-pads pairs into one 64-pixel-rounded shape with
 coarse validity masks and matches them in batches of ``batch_size``; each
 call draws the RANSAC samples from a generator seeded with 0, as the JAX
@@ -37,7 +38,7 @@ from geoformer_tpu_torch.core import mesh
 from geoformer_tpu_torch.eval.clahe import clahe
 from geoformer_tpu_torch.eval.image_io import read_gray
 from geoformer_tpu_torch.models import GeoFormer
-from geoformer_tpu_torch.ops.resize import resize_linear_u8
+from geoformer_tpu_torch.ops.resize import resize_linear, resize_linear_u8
 
 
 def resize_shape(wo: int, ho: int, imsize: Optional[int], dfactor: int = 8,
@@ -52,6 +53,24 @@ def resize_shape(wo: int, ho: int, imsize: Optional[int], dfactor: int = 8,
         ht, wt = int(round(ho * s)), int(round(wo * s))
     wt, ht = (wt // dfactor) * dfactor, (ht // dfactor) * dfactor
     return wt, ht, (wo / wt, ho / ht)
+
+
+def ratio_preserving_resize(im: np.ndarray, target_hw) -> np.ndarray:
+    """Resize ``im`` ([h, w] or [h, w, C], uint8 or float) by the larger of
+    the two scales to target_hw (ops/resize.resize_linear, cv2.resize's
+    arithmetic), then centre-crop or zero-pad each axis to target_hw."""
+    th, tw = target_hw
+    h, w = im.shape[:2]
+    s = max(th / h, tw / w)
+    nh, nw = int(round(h * s)), int(round(w * s))
+    tmp = resize_linear(im, (nh, nw))
+    out = np.zeros((th, tw) + im.shape[2:], tmp.dtype)
+    dy, dx = (th - nh) // 2, (tw - nw) // 2
+    sy0, ty0 = max(-dy, 0), max(dy, 0)
+    sx0, tx0 = max(-dx, 0), max(dx, 0)
+    ch, cw = min(nh, th), min(nw, tw)
+    out[ty0:ty0 + ch, tx0:tx0 + cw] = tmp[sy0:sy0 + ch, sx0:sx0 + cw]
+    return out
 
 
 def enhance_retinal(im: np.ndarray) -> np.ndarray:

@@ -1,8 +1,9 @@
-"""Dual-softmax matching confidence.
+"""Dual-softmax matching confidence and its mutual-nearest mask.
 
-Counterpart of geoformer_tpu/ops/matching.py:dual_softmax: features divided
-by sqrt(C), similarity divided by a temperature, padding filled with -inf,
-confidence = softmax over rows times softmax over columns.
+Counterpart of geoformer_tpu/ops/matching.py: dual_softmax (features
+divided by sqrt(C), similarity divided by a temperature, padding filled
+with -inf, confidence = softmax over rows times softmax over columns) and
+mutual_nearest_mask.
 """
 
 from __future__ import annotations
@@ -27,3 +28,11 @@ def dual_softmax(feat0: torch.Tensor, feat1: torch.Tensor,
         valid = mask0[:, :, None].bool() & mask1[:, None, :].bool()
         sim = sim.masked_fill(~valid, -inf)
     return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+def mutual_nearest_mask(conf: torch.Tensor, thr: float) -> torch.Tensor:
+    """[B, L0, L1] bool: cells above ``thr`` that are the maximum of their
+    row and of their column."""
+    row_max = conf == conf.amax(dim=2, keepdim=True)
+    col_max = conf == conf.amax(dim=1, keepdim=True)
+    return (conf > thr) & row_max & col_max

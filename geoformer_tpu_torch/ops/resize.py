@@ -7,7 +7,8 @@ F.interpolate(align_corners=True) computes the same function.
 
 resize_linear_u8: cv2.resize's INTER_LINEAR on uint8 images, which the JAX
 package calls to size images read from files (eval/matcher.py,
-data/synthetic.py); the port has no cv2.
+data/synthetic.py); the port has no cv2. resize_linear: the same on
+uint8 or float images, with or without a channel axis.
 """
 
 from __future__ import annotations
@@ -33,11 +34,11 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
 _COEF_SCALE = 1 << 11
 
 
-def _linear_taps(dst: int, src: int, clamp_weights: bool):
-    """Source indices (i0, i1) and weights (w0, w1) of cv2's INTER_LINEAR
-    along one axis: pixel centres at half-integers, f32 positions, weights
-    rounded to 11 bits. Along x a position off the source is clamped with
-    its weight (one tap); along y only the rows are clamped."""
+def _linear_frac(dst: int, src: int, clamp_weights: bool):
+    """Source indices (i0, i1) and f32 fractions f of cv2's INTER_LINEAR
+    along one axis (weights 1 - f and f): pixel centres at half-integers,
+    f32 positions. Along x a position off the source is clamped with its
+    weight (one tap); along y only the rows are clamped."""
     scale = 1.0 / (dst / src)
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     i0 = np.floor(f).astype(np.int64)
@@ -45,10 +46,16 @@ def _linear_taps(dst: int, src: int, clamp_weights: bool):
     if clamp_weights:
         f[(i0 < 0) | (i0 >= src - 1)] = 0
         i0 = np.clip(i0, 0, src - 1)
+    return np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), f
+
+
+def _linear_taps(dst: int, src: int, clamp_weights: bool):
+    """_linear_frac's taps with the weights rounded to 11 bits."""
+    i0, i1, f = _linear_frac(dst, src, clamp_weights)
     scale_f = np.float32(_COEF_SCALE)
     w0 = np.rint((np.float32(1) - f) * scale_f).astype(np.int64)
     w1 = np.rint(f * scale_f).astype(np.int64)
-    return (np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), w0, w1)
+    return i0, i1, w0, w1
 
 
 def resize_linear_u8(img: np.ndarray, out_hw) -> np.ndarray:
@@ -79,3 +86,38 @@ def resize_linear_u8(img: np.ndarray, out_hw) -> np.ndarray:
     b0, b1 = b0[:, None], b1[:, None]
     out = ((((r0 >> 4) * b0) >> 16) + (((r1 >> 4) * b1) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _resize_linear_float(img: np.ndarray, out_hw) -> np.ndarray:
+    """cv2.resize INTER_LINEAR of a [h, w] float image, in its dtype: the
+    taps of _linear_frac with weights (1 - f, f) unrounded, a horizontal
+    pass then a vertical one; an exact halving of both sides is the mean
+    of each 2x2 block."""
+    h, w = img.shape
+    oh, ow = out_hw
+    dt = img.dtype.type
+    if (h, w) == (2 * oh, 2 * ow):
+        return ((img[0::2, 0::2] + img[0::2, 1::2] + img[1::2, 0::2]
+                 + img[1::2, 1::2]) * dt(0.25)).astype(img.dtype)
+
+    x0, x1, a = _linear_frac(ow, w, True)
+    y0, y1, b = _linear_frac(oh, h, False)
+    a, b = a.astype(img.dtype), b.astype(img.dtype)[:, None]
+    rows = img[:, x0] * (dt(1) - a) + img[:, x1] * a
+    return (rows[y0] * (dt(1) - b) + rows[y1] * b).astype(img.dtype)
+
+
+def resize_linear(img: np.ndarray, out_hw) -> np.ndarray:
+    """``cv2.resize(img, (ow, oh))`` (INTER_LINEAR) of a [h, w] or
+    [h, w, C] uint8 or float image, each channel alone."""
+    if img.ndim == 3:
+        return np.stack([resize_linear(img[..., c], out_hw)
+                         for c in range(img.shape[2])], -1)
+    if tuple(out_hw) == img.shape:
+        return img.copy()
+    if img.dtype == np.uint8:
+        return resize_linear_u8(img, out_hw)
+    if not np.issubdtype(img.dtype, np.floating):
+        raise TypeError(f"resize_linear takes uint8 or float, not "
+                        f"{img.dtype}")
+    return _resize_linear_float(img, out_hw)

@@ -5,9 +5,11 @@ Counterpart of geoformer_tpu/train/depth_loop.py, with its parameters,
 defaults, files and printed lines: scene-balanced batches from npz index
 files (data/megadepth.py), the depth train step (train/trainer.py), and a
 validation that recovers each pair's relative pose from its matches by
-the on-device essential RANSAC (geometry/essential.py), aggregates the
-pose AUC at 5/10/20 degrees and the epipolar precision over the pairs of
-every process (core/dist.py), and keeps the best five checkpoints by
+the on-device essential RANSAC (geometry/essential.py) or, when the
+caller names the host backend, the reference's per-pair 5-point RANSAC
+on the host (eval/pose.py), aggregates the pose AUC at 5/10/20 degrees
+and the epipolar precision over the pairs of every process
+(core/dist.py), and keeps the best five checkpoints by
 auc@10 in ``<ckpt_dir>/best`` beside the three newest in ``ckpt_dir``. It
 runs on the card unless the caller asks for the CPU (``device="cpu"``).
 
@@ -43,7 +45,7 @@ from geoformer_tpu_torch.config import (
 from geoformer_tpu_torch.core import mesh
 from geoformer_tpu_torch.core.dist import all_gather_metrics, host_mean
 from geoformer_tpu_torch.data.megadepth import scene_balanced_stream
-from geoformer_tpu_torch.eval.pose import HOST_POSE, error_auc
+from geoformer_tpu_torch.eval.pose import error_auc, pose_error_for_pair
 from geoformer_tpu_torch.geometry.essential import batched_pose_errors
 from geoformer_tpu_torch.train.checkpoint import (
     restore_checkpoint,
@@ -68,18 +70,25 @@ def to_device(batch: dict, device) -> dict:
 def run_depth_validation(val_fn, state, val_batches,
                          epi_err_thr: float = 5e-4,
                          pose_thresh: float = 0.5,
-                         pose_backend: str = "device") -> dict:
+                         pose_backend: str = "device",
+                         pose_stats: Optional[dict] = None) -> dict:
     """One validation sweep: the val step on each batch (the GAM's RANSAC
     drawn from a generator seeded 0, as the JAX loop passes key(0)), the
-    pose of every pair by the device essential RANSAC (draws seeded 0 a
-    batch), pairs gathered over processes and deduplicated by id, the AUC
-    of max(R, t) angular error at 5/10/20 degrees, the mean per-pair
-    precision of epipolar errors below epi_err_thr, and the val scalars'
-    means (over the batches, then the ranks). This rank's pairs are
-    numbered from rank * 10**9. ``pose_backend="host"`` (cv2's estimator)
-    raises NotImplementedError."""
-    if pose_backend != "device":
-        raise NotImplementedError(HOST_POSE)
+    pose of every pair, pairs gathered over processes and deduplicated by
+    id, the AUC of max(R, t) angular error at 5/10/20 degrees, the mean
+    per-pair precision of epipolar errors below epi_err_thr, and the val
+    scalars' means (over the batches, then the ranks). This rank's pairs
+    are numbered from rank * 10**9.
+
+    pose_backend: "device" runs the batched essential RANSAC on the
+    batch's device (draws seeded 0 a batch); "host" copies the matches to
+    the host and runs the reference-faithful per-pair estimator
+    (eval/pose.pose_error_for_pair: the 5-point RANSAC and recoverPose of
+    geometry/five_point.py) at ``pose_thresh`` px. With the host backend,
+    ``pose_stats`` (a dict, when given) gets each pair's ms in
+    pose_error_for_pair ("ms"), the RANSAC iterations of each pair with
+    at least 5 matches ("iters") and the count of pairs without a pose
+    ("failed"), this rank's pairs only."""
     R_errs, t_errs, precs, identifiers, val_scalars = [], [], [], [], []
     pair_id = mesh.rank() * 10 ** 9
     for batch in val_batches:
@@ -87,19 +96,37 @@ def run_depth_validation(val_fn, state, val_batches,
         scalars, pd = val_fn(state, batch,
                              generator=torch.Generator(dev).manual_seed(0))
         val_scalars.append({k: float(v) for k, v in scalars.items()})
-        t_e, R_e, _, _ = batched_pose_errors(
-            pd["mkpts0"], pd["mkpts1"], pd["valid"], batch["K0"],
-            batch["K1"], batch["T_0to1"], thresh=pose_thresh,
-            generator=torch.Generator(dev).manual_seed(0))
         valid = pd["valid"].cpu().numpy()
         epi = pd["epi_errs"].cpu().numpy()
+        if pose_backend == "device":
+            t_e, R_e, _, _ = batched_pose_errors(
+                pd["mkpts0"], pd["mkpts1"], pd["valid"], batch["K0"],
+                batch["K1"], batch["T_0to1"], thresh=pose_thresh,
+                generator=torch.Generator(dev).manual_seed(0))
+            R_errs.extend(R_e.cpu().tolist())
+            t_errs.extend(t_e.cpu().tolist())
+        else:
+            mk0, mk1, K0, K1, T = (x.cpu().numpy() for x in (
+                pd["mkpts0"], pd["mkpts1"], batch["K0"], batch["K1"],
+                batch["T_0to1"]))
+            stats = {} if pose_stats is None else pose_stats
+            for key, empty in (("ms", []), ("iters", []), ("failed", 0)):
+                stats.setdefault(key, empty)
+            for i in range(len(valid)):
+                v = valid[i]
+                t0 = time.perf_counter()
+                t_err, R_err, _ = pose_error_for_pair(
+                    mk0[i][v], mk1[i][v], K0[i], K1[i], T[i],
+                    thresh=pose_thresh, iters=stats["iters"])
+                stats["ms"].append((time.perf_counter() - t0) * 1e3)
+                stats["failed"] += not np.isfinite(t_err)
+                R_errs.append(R_err)
+                t_errs.append(t_err)
         for i in range(len(valid)):
             e = epi[i][valid[i]]
             precs.append(float(np.mean(e < epi_err_thr)) if len(e) else 0.0)
             identifiers.append(pair_id)
             pair_id += 1
-        R_errs.extend(R_e.cpu().tolist())
-        t_errs.extend(t_e.cpu().tolist())
 
     gathered = all_gather_metrics({
         "R_errs": np.asarray(R_errs, np.float32),

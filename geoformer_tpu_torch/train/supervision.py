@@ -5,7 +5,9 @@ spvs_fine2 of the reference, fixed shapes throughout), with its homography
 and depth branches. The coarse GT is kept in its sparse row form: the
 cycle-consistent one-hot has at most one GT column per image0 cell, so
 (gt_j [B, L0], gt_valid [B, L0]) is the whole [B, L0, L1] matrix; the
-dense form (spvs_coarse_depth) is built from it for tests.
+dense forms (spvs_coarse_homography, spvs_coarse_depth) are built from it.
+spvs_fine_expec_homography gives the plain-LoFTR family's soft-argmax
+offsets.
 """
 
 from __future__ import annotations
@@ -75,6 +77,40 @@ def spvs_coarse_homography_sparse(H_0to1, H_1to0, image_hw,
     w_pt0_c = warp_points(grid0, H_0to1) / coarse_scale
     w_pt1_c = warp_points(grid1, H_1to0) / coarse_scale
     return sparse_coarse_gt_from_warps(w_pt0_c, w_pt1_c, (h0, w0), (h1, w1))
+
+
+def _dense_coarse_gt(gt_j, gt_valid, l1: int) -> torch.Tensor:
+    """The [B, L0, L1] one-hot of the sparse rows (gt_j, gt_valid)."""
+    b, l0 = gt_j.shape
+    cols = torch.where(gt_valid, gt_j, torch.full_like(gt_j, l1))
+    conf = torch.zeros((b, l0, l1 + 1), device=gt_j.device)
+    conf.scatter_(2, cols[..., None], 1.0)
+    return conf[:, :, :l1]
+
+
+def spvs_coarse_homography(H_0to1, H_1to0, image_hw, coarse_scale: int = 8,
+                           mask0: Optional[torch.Tensor] = None,
+                           mask1: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The dense [B, L0, L1] one-hot of spvs_coarse_homography_sparse."""
+    gt_j, gt_valid = spvs_coarse_homography_sparse(
+        H_0to1, H_1to0, image_hw, coarse_scale, mask0, mask1)
+    l1 = (image_hw[0] // coarse_scale) * (image_hw[1] // coarse_scale)
+    return _dense_coarse_gt(gt_j, gt_valid, l1)
+
+
+def spvs_fine_expec_homography(matches: CoarseMatches, H_0to1, grid_w0: int,
+                               grid_w1: int, coarse_scale: int = 8,
+                               fine_scale: int = 2, window: int = 5
+                               ) -> torch.Tensor:
+    """Soft-argmax GT offsets [B, M, 2] of the plain-LoFTR family: image0's
+    coarse centre warped through H_0to1, less image1's matched centre, in
+    units of the window's radius (|.| > 1: outside the window)."""
+    radius = window // 2
+    centers0 = match_coords(matches.i_ids, grid_w0, coarse_scale)
+    centers1 = match_coords(matches.j_ids, grid_w1, coarse_scale)
+    w_pt0 = warp_points(centers0, H_0to1)
+    return (w_pt0 - centers1) / (fine_scale * radius)
 
 
 def _fine_label_from_warp(w_pt0, kpts1, window: int, dist_thr: float):
@@ -181,11 +217,7 @@ def spvs_coarse_depth(depth0, depth1, T_0to1, T_1to0, K0, K1, image_hw,
         depth0, depth1, T_0to1, T_1to0, K0, K1, image_hw, coarse_scale,
         mask0, mask1, scale0, scale1)
     l1 = (image_hw[0] // coarse_scale) * (image_hw[1] // coarse_scale)
-    b, l0 = gt_j.shape
-    cols = torch.where(gt_valid, gt_j, torch.full_like(gt_j, l1))
-    conf = torch.zeros((b, l0, l1 + 1), device=gt_j.device)
-    conf.scatter_(2, cols[..., None], 1.0)
-    return conf[:, :, :l1]
+    return _dense_coarse_gt(gt_j, gt_valid, l1)
 
 
 def spvs_fine_depth(matches: CoarseMatches, depth0, depth1, T_0to1, K0, K1,

@@ -917,3 +917,57 @@ def test_seq_extraction_merges_of_two_ranks_on_the_card(dev, tmp_path):
         np.testing.assert_allclose(got["row_best"], ref["row_best"],
                                    rtol=2e-5, atol=1e-8)
         assert (got["col_arg"][:, 9] == 3).all()
+
+
+def test_host_pose_backend_on_a_card_val_step(dev, tmp_path):
+    """The host pose backend after the depth gate's val step on the card
+    (the trained tpu_r5_depth2 checkpoint, one rendered val scene, a batch
+    of 2 at 640x640): the step launches K1 and K2 four times each and no
+    other kernel, the backend copies the card's matches to the host and
+    finds a pose for both pairs, and its record equals that of the same
+    matches handed over as CPU tensors. Both arms run the same numpy
+    estimator, so the last check covers the copy alone; the estimator is
+    held to cv2 by tests/test_torch_port_pose_host.py."""
+    from geoformer_tpu_torch.config import TrainConfig
+    from geoformer_tpu_torch.data import depth_corpus
+    from geoformer_tpu_torch.data.megadepth import scene_balanced_stream
+    from geoformer_tpu_torch.eval import depth_gate as dg
+    from geoformer_tpu_torch.train.depth_loop import (
+        run_depth_validation,
+        to_device,
+    )
+    from geoformer_tpu_torch.train.trainer import make_depth_val_step
+
+    depth_corpus.build(str(tmp_path), n_scenes=0, n_val_scenes=1,
+                       seed=dg.CORPUS_SEED, cluttered=True)
+    stream = scene_balanced_stream(
+        str(tmp_path / "index_val"), str(tmp_path), 2, dg.VAL_SEED,
+        min_overlap_score=0.4, img_resize=dg.IMSIZE, depth_pad=dg.DEPTH_PAD)
+    batch = to_device(next(stream), dev)
+    state = dg.load_state(dev)
+    step = make_depth_val_step(TrainConfig(batch_size=2,
+                                           image_hw=(dg.IMSIZE, dg.IMSIZE)))
+    kept = []
+
+    def val_fn(state, batch, generator=None):
+        kept.append(step(state, batch, generator=generator))
+        return kept[-1]
+
+    gk.reset_launch_counts()
+    stats = {}
+    on_card = run_depth_validation(val_fn, state, [batch],
+                                   pose_backend="host", pose_stats=stats)
+    for name, count in gk.LAUNCHES.items():
+        want = 4 if name in ("box_window_attention",
+                             "masked_kv_attention") else 0
+        assert count == want, (name, count)
+    scalars, pd = kept[0]
+    host = ({k: torch.as_tensor(v).cpu() for k, v in scalars.items()},
+            {k: v.cpu() for k, v in pd.items()})
+    on_cpu = run_depth_validation(
+        lambda state, batch, generator=None: host, None,
+        [{k: v.cpu() for k, v in batch.items()}], pose_backend="host")
+    assert on_cpu == on_card
+    assert len(stats["ms"]) == 2 and stats["failed"] == 0
+    assert int(pd["valid"].sum(1).min()) >= 5
+    assert np.isfinite(on_card["auc@20"])

@@ -12,9 +12,9 @@ train-depth command, on the CPU.
   written as the JAX loop writes them; params_final.npz holds the step.
 - resume: the restored state equals the saved one bit for bit, and a
   resumed run continues from the rolling directory.
-- error_auc and aggregate_metrics equal the JAX functions; the host pose
-  estimator (cv2's) raises NotImplementedError; all_gather_metrics is
-  the identity without a process group.
+- error_auc and aggregate_metrics equal the JAX functions;
+  all_gather_metrics is the identity without a process group (the host
+  pose estimator is held to cv2's in tests/test_torch_port_pose_host.py).
 - `cli train-depth` has the JAX subcommand's dests and defaults plus
   --device (default cuda), and runs a step on the CPU.
 """
@@ -138,16 +138,6 @@ def test_error_auc_and_aggregate_match_jax():
          "epi_errs": [rng.random(5) * 1e-3, rng.random(3) * 1e-3,
                       np.array([]), rng.random(7) * 1e-3]}
     assert ppose.aggregate_metrics(m) == jpose.aggregate_metrics(m)
-
-
-def test_the_host_pose_estimator_is_not_ported():
-    k = np.zeros((8, 2))
-    with pytest.raises(NotImplementedError, match="cv2"):
-        ppose.estimate_pose(k, k, np.eye(3), np.eye(3))
-    with pytest.raises(NotImplementedError, match="cv2"):
-        ppose.pose_error_for_pair(k, k, np.eye(3), np.eye(3), np.eye(4))
-    with pytest.raises(NotImplementedError, match="cv2"):
-        depth_loop.run_depth_validation(None, None, [], pose_backend="host")
 
 
 def test_all_gather_metrics_is_the_identity_on_one_process():
