@@ -39,6 +39,7 @@ from geoformer_tpu_torch.eval.clahe import clahe
 from geoformer_tpu_torch.eval.image_io import read_gray
 from geoformer_tpu_torch.models import GeoFormer
 from geoformer_tpu_torch.ops.resize import resize_linear, resize_linear_u8
+from geoformer_tpu_torch.utils.spans import span
 
 
 def resize_shape(wo: int, ho: int, imsize: Optional[int], dfactor: int = 8,
@@ -144,20 +145,23 @@ class BatchedMatcher:
         generator seeded with 0 for the whole batch; data-parallel: on this
         rank's slice, with its rows of the batch's draw."""
         dev = self.device
-        gen = torch.Generator(dev).manual_seed(0)
-        arrays = [torch.from_numpy(x).to(dev) for x in (i0, i1, m0, m1)]
-        noise = None
-        if self.data_parallel:
-            b, h, w, _ = i0.shape
-            cells = (h // self.cfg.coarse_scale) * (w // self.cfg.coarse_scale)
-            cap = self.cfg.match.max_matches
-            n = cells if cap <= 0 or cap >= cells else cap
-            sl = mesh.local_shard_slice(b)
-            noise = torch.rand((b, self.cfg.geo.ransac_iters, n),
-                               generator=gen, device=dev)[sl]
-            arrays = [x[sl] for x in arrays]
-        with torch.no_grad():
-            return self.model(*arrays, generator=gen, ransac_noise=noise)
+        with span("matcher.copy_in"):
+            gen = torch.Generator(dev).manual_seed(0)
+            arrays = [torch.from_numpy(x).to(dev) for x in (i0, i1, m0, m1)]
+        with span("matcher.forward"):
+            noise = None
+            if self.data_parallel:
+                b, h, w, _ = i0.shape
+                cells = (h // self.cfg.coarse_scale) * (
+                    w // self.cfg.coarse_scale)
+                cap = self.cfg.match.max_matches
+                n = cells if cap <= 0 or cap >= cells else cap
+                sl = mesh.local_shard_slice(b)
+                noise = torch.rand((b, self.cfg.geo.ransac_iters, n),
+                                   generator=gen, device=dev)[sl]
+                arrays = [x[sl] for x in arrays]
+            with torch.no_grad():
+                return self.model(*arrays, generator=gen, ransac_noise=noise)
 
     def pair_bucket(self, shape0, shape1) -> Tuple[int, int]:
         """The padded (H, W) a pair of (h, w) resized shapes lands in."""
@@ -193,15 +197,23 @@ class BatchedMatcher:
         Returns per pair (mkpts0 [K, 2], mkpts1 [K, 2], mconf [K]) numpy
         arrays in the (unpadded) pixel frame; with return_geo a 4th element
         {'H', 'has_H', 'num_inliers'} holds the pair's GAM state."""
-        s = self.cfg.coarse_scale
         shapes = [bucket_shape(*im.shape) for im in imgs0 + imgs1]
         H = max(h for h, _ in shapes)
         W = max(w for _, w in shapes)
         b = self.batch_size
         out = []
         for start in range(0, len(imgs0), b):
-            chunk0 = imgs0[start:start + b]
-            chunk1 = imgs1[start:start + b]
+            with span("matcher.call"):
+                out += self._match_chunk(imgs0[start:start + b],
+                                  imgs1[start:start + b], H, W, return_geo)
+        return out
+
+    def _match_chunk(self, chunk0, chunk1, H: int, W: int, return_geo: bool):
+        """match_batch on one chunk of at most batch_size pairs, padded
+        to (H, W)."""
+        s = self.cfg.coarse_scale
+        b = self.batch_size
+        with span("matcher.pad"):
             i0 = np.zeros((b, H, W, 1), np.float32)
             i1 = np.zeros((b, H, W, 1), np.float32)
             m0 = np.zeros((b, H // s, W // s), np.float32)
@@ -211,12 +223,15 @@ class BatchedMatcher:
                 i1[j, :c.shape[0], :c.shape[1], 0] = c
                 m0[j, :a.shape[0] // s, :a.shape[1] // s] = 1.0
                 m1[j, :c.shape[0] // s, :c.shape[1] // s] = 1.0
-            res = self._forward(i0, i1, m0, m1)
+        res = self._forward(i0, i1, m0, m1)
+        with span("matcher.copy_out"):
             got = {"mk0": res.fine.mkpts0, "mk1": res.fine.mkpts1,
                    "mc": res.fine.mconf.float(), "valid": res.fine.valid,
                    "H": res.geo.H, "has_H": res.geo.has_H,
                    "num_inliers": res.geo.num_inliers}
             got = {k: v.cpu().numpy() for k, v in got.items()}
+        out = []
+        with span("matcher.unpack"):
             if self.data_parallel:    # every rank's slice, in pair order
                 got = pdist.all_gather_metrics(got)
             for j in range(len(chunk0)):

@@ -50,6 +50,7 @@ from geoformer_tpu_torch.models.coarse_matching import (
 from geoformer_tpu_torch.models.layers import no_grad
 from geoformer_tpu_torch.models.position import add_position_encoding
 from geoformer_tpu_torch.models.transformer import EncoderLayer
+from geoformer_tpu_torch.utils.spans import span
 
 
 class GeoState(NamedTuple):
@@ -72,11 +73,12 @@ def _build_geo_state(matches: CoarseMatches, hw0_c, hw1_c, scale: int,
     pts0 = match_coords(matches.i_ids, hw0_c[1], scale)
     pts1 = match_coords(matches.j_ids, hw1_c[1], scale)
     valid = matches.valid
-    fit = ransac_homography(pts0, pts1, valid, thr=cfg.ransac_thr,
-                            iters=cfg.ransac_iters,
-                            refine_iters=cfg.refine_iters,
-                            sample_idx=sample_idx, generator=generator,
-                            noise=noise)
+    with span("ransac"):
+        fit = ransac_homography(pts0, pts1, valid, thr=cfg.ransac_thr,
+                                iters=cfg.ransac_iters,
+                                refine_iters=cfg.refine_iters,
+                                sample_idx=sample_idx, generator=generator,
+                                noise=noise)
     has_H = fit["ok"] & (valid.sum(-1) > cfg.min_matches)
     # membership: RANSAC inliers when H exists, else all matches
     member = torch.where(has_H[:, None], fit["inliers"] & valid, valid)

@@ -35,7 +35,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from geoformer_tpu_torch.config import GeoFormerConfig
 from geoformer_tpu_torch.core import spmd
@@ -56,6 +55,7 @@ from geoformer_tpu_torch.models.position import add_position_encoding
 from geoformer_tpu_torch.models.transformer import LocalFeatureTransformer
 from geoformer_tpu_torch.ops.matching import dual_softmax
 from geoformer_tpu_torch.ops.sinkhorn import log_optimal_transport
+from geoformer_tpu_torch.utils.spans import span
 
 
 class MatchOutput(NamedTuple):
@@ -184,28 +184,28 @@ class GeoFormer(nn.Module):
                                     cfg.match.max_matches, m0, m1,
                                     force_one=force_one, seq=seq)
 
-        # named ranges: the stages a profiler trace is read by
-        with record_function("backbone"):
+        # the stages, as spans: a profiler trace is read by their names
+        with span("backbone"):
             feats_c, feats_f = self.backbone(
                 torch.cat([image0[:, rows], image1[:, rows]]), train, seq)
             cnn_c0, cnn_c1 = feats_c[:b], feats_c[b:]
             feat_f0, feat_f1 = feats_f[:b], feats_f[b:]
-        with record_function("coarse_transformer"):
+        with span("coarse_transformer"):
             lb = tokens.stop - tokens.start
             f0 = add_position_encoding(cnn_c0, row0=band.start).reshape(
                 b, lb, -1)
             f1 = add_position_encoding(cnn_c1, row0=band.start).reshape(
                 b, lb, -1)
             f0, f1 = self.loftr_coarse(f0, f1, b0, b1, seq=seq)
-        with record_function("coarse_match_1"):
+        with span("coarse_match_1"):
             matches1 = matcher(f0, f1)
-        with record_function("gam"):
+        with span("gam"):
             g0, g1, geo_state = self.geo_module(cnn_c0, cnn_c1, matches1,
                                                 cfg.coarse_scale, sample_idx,
                                                 generator, ransac_noise, seq)
-        with record_function("coarse_match_2"):
+        with span("coarse_match_2"):
             matches2 = matcher(g0, g1)
-        with record_function("fine"):
+        with span("fine"):
             stride = cfg.coarse_scale // cfg.fine_scale
             w0, w1 = self.fine_preprocess(feat_f0, feat_f1, g0, g1, matches2,
                                           stride, wc, wc, seq)

@@ -74,6 +74,7 @@ from geoformer_tpu_torch.train.supervision import (
     spvs_fine_depth,
     spvs_fine_homography,
 )
+from geoformer_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -109,32 +110,36 @@ def make_train_step(tcfg: TrainConfig):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: float, sample_idx: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None):
-        model = state.model
-        cfg = model.config
-        wc = W // cfg.coarse_scale
-        mask0, mask1 = batch.get("mask0"), batch.get("mask1")
-        state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch["image0"], batch["image1"], mask0, mask1,
-                    sample_idx=sample_idx, generator=generator, train=True,
-                    return_feats=True,
-                    ransac_noise=_global_noise(cfg, batch, sample_idx,
-                                               generator))
-        with torch.no_grad():
-            gt_j, gt_valid = spvs_coarse_homography_sparse(
-                batch["H_0to1"], batch["H_1to0"], (H, W), cfg.coarse_scale,
-                mask0, mask1)
-            fine_gt = spvs_fine_homography(
-                out.matches, batch["H_0to1"], wc, wc, cfg.coarse_scale,
-                cfg.fine_scale, cfg.fine_match.window_size)
-        loss, scalars = geo_loss_streaming(
-            out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,
-            out.matches.valid, tcfg.loss, cfg.match.dsmax_temperature,
-            mask0, mask1, sp_axis=cfg.seq_axis,
-            global_counts=mesh.world() > 1)
-        scalars = {k: v.detach().float() for k, v in scalars.items()}
-        scalars["num_inliers"] = _batch_mean(out.geo.num_inliers)
-        scalars["num_matches"] = _batch_mean(out.matches.valid.sum(-1))
-        return _update(state, tcfg, loss, lr, scalars)
+        with span("train.step"):
+            model = state.model
+            cfg = model.config
+            wc = W // cfg.coarse_scale
+            mask0, mask1 = batch.get("mask0"), batch.get("mask1")
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                out = model(batch["image0"], batch["image1"], mask0, mask1,
+                            sample_idx=sample_idx, generator=generator,
+                            train=True, return_feats=True,
+                            ransac_noise=_global_noise(cfg, batch,
+                                                       sample_idx, generator))
+            with span("train.supervision"), torch.no_grad():
+                gt_j, gt_valid = spvs_coarse_homography_sparse(
+                    batch["H_0to1"], batch["H_1to0"], (H, W),
+                    cfg.coarse_scale, mask0, mask1)
+                fine_gt = spvs_fine_homography(
+                    out.matches, batch["H_0to1"], wc, wc, cfg.coarse_scale,
+                    cfg.fine_scale, cfg.fine_match.window_size)
+            with span("train.loss"):
+                loss, scalars = geo_loss_streaming(
+                    out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,
+                    out.matches.valid, tcfg.loss,
+                    cfg.match.dsmax_temperature, mask0, mask1,
+                    sp_axis=cfg.seq_axis, global_counts=mesh.world() > 1)
+                scalars = {k: v.detach().float() for k, v in scalars.items()}
+                scalars["num_inliers"] = _batch_mean(out.geo.num_inliers)
+                scalars["num_matches"] = _batch_mean(
+                    out.matches.valid.sum(-1))
+            return _update(state, tcfg, loss, lr, scalars)
 
     return train_step
 
@@ -174,29 +179,32 @@ def _update(state: TrainState, tcfg: TrainConfig, loss: torch.Tensor,
     (before clipping) and lr to ``scalars``. In a group of several ranks
     the gradients and the scalars (each rank's share) are summed over the
     ranks in one all-reduce first."""
-    loss.backward()
-    params = list(state.model.parameters())
-    for p in params:
-        # optax updates (and decays) every parameter, used or not
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    if mesh.world() > 1:
-        keys = list(scalars)
-        summed = mesh.all_sum_flat(
-            grads + [torch.stack([scalars[k] for k in keys])])
-        for g, s in zip(grads, summed):
-            g.copy_(s)
-        scalars = dict(zip(keys, summed[-1].unbind()))
-    norm = global_norm(grads)
-    if tcfg.optim.gradient_clipping > 0:
-        clip_by_global_norm_(grads, tcfg.optim.gradient_clipping, norm)
-    for group in state.optimizer.param_groups:
-        group["lr"] = float(lr)
-    state.optimizer.step()
-    state.step += 1
-    scalars["grad_norm"] = norm.detach()
-    scalars["lr"] = torch.tensor(float(lr), device=norm.device)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.clip"):
+        params = list(state.model.parameters())
+        for p in params:
+            # optax updates (and decays) every parameter, used or not
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if mesh.world() > 1:
+            keys = list(scalars)
+            summed = mesh.all_sum_flat(
+                grads + [torch.stack([scalars[k] for k in keys])])
+            for g, s in zip(grads, summed):
+                g.copy_(s)
+            scalars = dict(zip(keys, summed[-1].unbind()))
+        norm = global_norm(grads)
+        if tcfg.optim.gradient_clipping > 0:
+            clip_by_global_norm_(grads, tcfg.optim.gradient_clipping, norm)
+    with span("train.optimizer"):
+        for group in state.optimizer.param_groups:
+            group["lr"] = float(lr)
+        state.optimizer.step()
+        state.step += 1
+        scalars["grad_norm"] = norm.detach()
+        scalars["lr"] = torch.tensor(float(lr), device=norm.device)
     return scalars
 
 
@@ -272,7 +280,7 @@ def _depth_losses(out, batch, tcfg: TrainConfig, cfg: GeoFormerConfig,
     wc = W // cfg.coarse_scale
     mask0, mask1 = batch.get("mask0"), batch.get("mask1")
     s0, s1 = batch.get("scale0"), batch.get("scale1")
-    with torch.no_grad():
+    with span("train.supervision"), torch.no_grad():
         gt_j, gt_valid = spvs_coarse_depth_sparse(
             batch["depth0"], batch["depth1"], batch["T_0to1"],
             batch["T_1to0"], batch["K0"], batch["K1"], (H, W),
@@ -282,10 +290,11 @@ def _depth_losses(out, batch, tcfg: TrainConfig, cfg: GeoFormerConfig,
             batch["K0"], batch["K1"], wc, wc, cfg.coarse_scale,
             cfg.fine_scale, cfg.fine_match.window_size, scale0=s0,
             scale1=s1)
-    return geo_loss_streaming(
-        out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,
-        out.matches.valid, tcfg.loss, cfg.match.dsmax_temperature,
-        mask0, mask1, sp_axis=cfg.seq_axis, global_counts=global_counts)
+    with span("train.loss"):
+        return geo_loss_streaming(
+            out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,
+            out.matches.valid, tcfg.loss, cfg.match.dsmax_temperature,
+            mask0, mask1, sp_axis=cfg.seq_axis, global_counts=global_counts)
 
 
 def make_depth_train_step(tcfg: TrainConfig):
@@ -301,18 +310,21 @@ def make_depth_train_step(tcfg: TrainConfig):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: float, sample_idx: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None):
-        model = state.model
-        state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch["image0"], batch["image1"], batch.get("mask0"),
-                    batch.get("mask1"), sample_idx=sample_idx,
-                    generator=generator, train=True, return_feats=True,
-                    ransac_noise=_global_noise(model.config, batch,
-                                               sample_idx, generator))
-        loss, scalars = _depth_losses(out, batch, tcfg, model.config,
-                                      global_counts=mesh.world() > 1)
-        scalars = {k: v.detach().float() for k, v in scalars.items()}
-        scalars["num_matches"] = _batch_mean(out.matches.valid.sum(-1))
-        return _update(state, tcfg, loss, lr, scalars)
+        with span("train.step"):
+            model = state.model
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                out = model(batch["image0"], batch["image1"],
+                            batch.get("mask0"), batch.get("mask1"),
+                            sample_idx=sample_idx, generator=generator,
+                            train=True, return_feats=True,
+                            ransac_noise=_global_noise(
+                                model.config, batch, sample_idx, generator))
+            loss, scalars = _depth_losses(out, batch, tcfg, model.config,
+                                          global_counts=mesh.world() > 1)
+            scalars = {k: v.detach().float() for k, v in scalars.items()}
+            scalars["num_matches"] = _batch_mean(out.matches.valid.sum(-1))
+            return _update(state, tcfg, loss, lr, scalars)
 
     return train_step
 

@@ -18,7 +18,9 @@ as its output. The shapes here are small and not multiples of the kernels'
 tiles (K2 and K3 skip 64-key tiles with no kept key, so their tests cover
 prefix masks with 0, 1, 63, 64, 65 and all S keys live); chip_smoke.py
 holds every kernel to its plain version at the main path's shapes and
-inside the model.
+inside the model. The tests of the span recorder at the end also read the
+device trace with the benchmark's functions (portbench/, torch only),
+imported inside them.
 """
 
 import numpy as np
@@ -971,3 +973,126 @@ def test_host_pose_backend_on_a_card_val_step(dev, tmp_path):
     assert len(stats["ms"]) == 2 and stats["failed"] == 0
     assert int(pd["valid"].sum(1).min()) >= 5
     assert np.isfinite(on_card["auc@20"])
+
+
+# ---------------------------------------------------------------- spans --
+# the port's span recorder (geoformer_tpu_torch/utils/spans.py) against the
+# device trace; CPU tests: tests/test_torch_port_spans.py
+
+def test_spans_hold_a_device_sleep_on_the_light_trace(dev):
+    """A torch.cuda._sleep kernel issued and synchronised inside one span
+    lies within that span on the light trace (the device's activity alone,
+    no host events), to 50 us: the recorder's clock maps onto the device
+    trace's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geoformer_tpu_torch.utils import spans
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with spans.recording() as rec:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for k in range(3):
+                with spans.span(f"sleep{k}"):
+                    torch.cuda._sleep(1_000_000)     # ~0.5 ms
+                    torch.cuda.synchronize()
+    start = prof.profiler.kineto_results.trace_start_ns()
+    kernels = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith("sleep"))
+    assert len(kernels) == 3, kernels
+    for s, (k0, k1) in zip(rec.spans, kernels):
+        a = (rec.unix_ns(s.start_ns) - start) / 1e3
+        b = (rec.unix_ns(s.end_ns) - start) / 1e3
+        assert a - 50 <= k0 and k1 <= b + 50, (s.name, a, b, k0, k1)
+        assert k1 - k0 > 100
+
+
+def test_a_planted_item_is_one_host_sync_in_its_span(dev):
+    """Under recording(syncs=True) one .item() is counted once, under the
+    innermost span open; work without a sync counts nothing; the sync
+    debug mode is restored."""
+    from geoformer_tpu_torch.utils import spans
+
+    x = torch.ones(64, device=dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    with spans.recording(syncs=True) as rec:
+        with spans.span("outer"):
+            y = x * 2
+            with spans.span("planted"):
+                y.sum().item()
+            y = y + 1
+    assert rec.totals(spans.SYNC) == {"planted": 1}
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+
+def test_a_sync_in_a_python_backward_counts_under_the_callers_span(dev):
+    """A sync inside the backward of a Python autograd.Function, which runs
+    on autograd's device thread, counts under the span the caller of
+    backward() is in."""
+    from geoformer_tpu_torch.utils import spans
+
+    class Planted(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            g.sum().item()
+            return g * 2
+
+    x = torch.ones(64, device=dev, requires_grad=True)
+    with spans.recording(syncs=True) as rec:
+        with spans.span("forward"):
+            y = Planted.apply(x).sum()
+        with spans.span("backward"):
+            y.backward()
+    assert rec.totals(spans.SYNC) == {"backward": 1}
+
+
+def test_train_forward_by_launch_agrees_with_the_stage_ranges(dev):
+    """A step of the headline configuration (trained weights, float32, K1-K5)
+    at 120x160, batch 2, under the full trace: the device ms of the kernels
+    launched while train.forward was open agree with the six stage ranges'
+    (portbench/trace.py's sum of the kernels under each range) within 2 %."""
+    import json
+    from pathlib import Path
+
+    from geoformer_tpu_torch.config import LossConfig, TrainConfig
+    from geoformer_tpu_torch.train.optim import make_optimizer
+    from geoformer_tpu_torch.train.trainer import TrainState, make_train_step
+    from geoformer_tpu_torch.utils import spans
+    from portbench import gen, trace
+    from portbench import program_spans as ps
+    from portbench.drivers.common import build_model, set_precision
+
+    root = Path(__file__).resolve().parents[1]
+    config = json.loads((root / "portbench" / "configs" /
+                         "geoformer-r3-headline.json").read_text())
+    config["image_hw"] = [120, 160]
+    set_precision(config)
+    _, model = build_model(config, dev)
+    tc = TrainConfig(loss=LossConfig(**config["train"]["loss"]),
+                     batch_size=2, image_hw=(120, 160))
+    state = TrainState(model, make_optimizer(tc.optim, model.parameters()))
+    step = make_train_step(tc)
+    batches = gen.training_batches(5, 3, 2, (120, 160), dev)
+    g = torch.Generator(dev).manual_seed(0)
+    step(state, batches[0], 1e-4, generator=g)
+    torch.cuda.synchronize()
+
+    def body():
+        for b in batches[1:]:
+            step(state, b, 1e-4, generator=g)
+        torch.cuda.synchronize()
+
+    with spans.recording() as rec:
+        _, prof, window_s = trace.traced(body)
+    stages = sum(trace.summarize(prof, window_s)["stage_ms"].values())
+    by_launch = ps.full_keys(prof, rec)["train_forward_device_ms"]
+    assert stages > 0
+    assert abs(by_launch - stages) <= 0.02 * stages, (by_launch, stages)
