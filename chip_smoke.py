@@ -17,7 +17,10 @@ Phases, each printing its own lines and its seconds:
    bits twice, timed hot and with L2 flushed, with its load (the most
    queries in one destination tile, the pieces); K2 also with the same
    live counts packed first (the GAM's prefix mask) and at the training
-   path's shape (B=4, S=512, f32);
+   path's shape (B=4, S=512, f32); K6, the streamed match extraction,
+   against the plain chunked loop at the matcher's shape (B=8 and B=4,
+   L=S=5120 of a 64x80 grid with rows 60-63 masked, C=256, f32), its ms
+   a call beside the plain loop's and its bound (3xTF32);
 3. main path: the port's BatchedMatcher at full width, bf16, 480x640, the
    bench configuration, random weights from a seed, on a textured image and
    its warp by a known homography; the launch counts of the kernels are
@@ -409,7 +412,79 @@ def phase_kernels(device):
     _mka_fwd_case(gk, q, k, v, _prefix_like(mask), "prefix")
     del q, k, v
     torch.cuda.empty_cache()
+    # ---- K6: the streamed extraction at the match cell's B and training's
+    results[("streaming_match_extract", torch.float32)] = _extract_case(
+        device, 8)
+    _extract_case(device, TRAIN_B)
+    torch.cuda.empty_cache()
     return results
+
+
+# K6 at the matcher's shape: 480x640 padded to 512x640, a 64x80 coarse grid
+# whose rows 60-63 are masked, C = 256, features f32 (TF32 off)
+EXTRACT_GRID = (64, 80)
+EXTRACT_C = 256
+# K6's ids against the plain loop's on seeded features: both compute f32
+# values ~1e-5 apart (the plain loop's own f32 error at this shape), so a
+# pick may flip at a near-tie; tests/test_torch_port_cuda.py holds those
+# to the plain values' top two. row_best relative to the plain loop's.
+EXTRACT_FLIPS = 1e-4
+EXTRACT_RB_TOL = 5e-5
+
+
+def _extract_case(device, b):
+    """K6 (streaming_match_extract on the card: two ops, four launches)
+    against the plain chunked loop at the matcher's shape, B pairs: the
+    picks, row_best and conf00, the call's device time beside the plain
+    loop's and the bound (2 passes x 2 B L S C operations in 3xTF32)."""
+    from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.ops import streaming_match as sm
+
+    hg, wg = EXTRACT_GRID
+    n = hg * wg
+    gen = torch.Generator().manual_seed(7 + b)
+    f0 = torch.randn((b, n, EXTRACT_C), generator=gen)
+    f1 = torch.randn((b, n, EXTRACT_C), generator=gen)
+    f1[:, :n // 2] = f0[:, :n // 2] + 0.3 * torch.randn(
+        (b, n // 2, EXTRACT_C), generator=gen)
+    f0, f1 = f0.to(device), f1.to(device)
+    mask = (torch.arange(n) < 60 * wg).float().expand(b, n).to(device)
+
+    def kernel():
+        return sm.streaming_match_extract(f0, f1, 0.1, mask, mask)
+
+    with torch.no_grad():
+        gk.reset_launch_counts()
+        got = kernel()
+        launches = gk.LAUNCHES["streaming_match_extract"]
+        with plain_kernels():
+            ref = kernel()
+            plain_ms = time_ms(kernel, 3, warmup=1)
+        torch.cuda.synchronize()
+        ms = time_ms(kernel, 20)
+    rb_rel = ((got[0] - ref[0]).abs() / ref[0].abs()).max().item()
+    rb_abs = (got[0] - ref[0]).abs().max().item()
+    j_flips = (got[1] != ref[1]).float().mean().item()
+    col_flips = (got[2] != ref[2]).float().mean().item()
+    c00 = ((got[3] - ref[3]).abs() / ref[3].abs().clamp_min(1e-30)).max()
+    flops = 2 * 2.0 * b * n * n * EXTRACT_C
+    nbytes = 2 * f0.numel() * 4 + 2 * mask.numel() + b * n * (4 + 8) * 2
+    bound, by = _bound(nbytes, flops, torch.float32, PEAK_FLOPS_3XTF32)
+    log("kernels", name="streaming_match_extract", dtype="torch.float32",
+        shape=f"f({b}, {n}, {EXTRACT_C}) rows>={60 * wg} masked",
+        launches_a_call=launches, row_best_max_rel=f"{rb_rel:.3e}",
+        rb_tol=EXTRACT_RB_TOL, j_flip_share=f"{j_flips:.2e}",
+        col_flip_share=f"{col_flips:.2e}", flip_max=EXTRACT_FLIPS,
+        conf00_max_rel=f"{c00.item():.3e}", kernel_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=None,
+        bound_ms=f"{bound:.4f}", bound_by=by,
+        bound_share=f"{100 * bound / ms:.1f}%")
+    check(launches == 1, f"K6: {launches} counts in one call")
+    check(rb_rel <= EXTRACT_RB_TOL, f"K6 B={b}: row_best off by {rb_rel}")
+    check(j_flips <= EXTRACT_FLIPS and col_flips <= EXTRACT_FLIPS,
+          f"K6 B={b}: picks differ ({j_flips}, {col_flips})")
+    return dict(max_abs_err=rb_abs, ms=ms, call_ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound, bound_by=by)
 
 
 def _prefix_like(mask):
@@ -685,9 +760,8 @@ def phase_main_path(device):
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches=launches, launches_per_forward={
             k: v / REQUESTS for k, v in launches.items()})
-    per_fwd = 4 * REQUESTS
     for name, count in launches.items():
-        want = per_fwd if name in FORWARD_KERNELS else 0
+        want = PER_FORWARD.get(name, 0) * REQUESTS
         check(count == want, f"{name} launched {count} times in "
               f"{REQUESTS} forwards, expected {want // REQUESTS} per forward")
     for res in results:
@@ -718,7 +792,7 @@ def phase_main_path(device):
         has_H=has_h, num_inliers=[r[3]["num_inliers"] for r in res],
         launches=live_launches)
     for name, count in live_launches.items():
-        want = 4 if name in FORWARD_KERNELS else 0
+        want = PER_FORWARD.get(name, 0)
         check(count == want, f"{name} launched {count} times in the "
               f"live-GAM forward, expected {want}")
     check(any(has_h), "the live-GAM request found no homography")
@@ -728,24 +802,28 @@ def phase_main_path(device):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Within the block, the GAM's kernel wrappers (K1-K5) are replaced by
-    their plain versions, on any device; the differentiable ops call them
-    by name. The parity checks' reference runs use it; the port itself
-    never falls back."""
+    """Within the block, the kernel wrappers (K1-K5, and K6's two ops) are
+    replaced by their plain versions, on any device; the differentiable ops
+    and the streamed extraction call them by name. The parity checks'
+    reference runs use it; the port itself never falls back."""
     from geoformer_tpu_torch.ops import gam_kernels as gk
+    from geoformer_tpu_torch.ops import streaming_match as sm
 
-    plain = {"box_window_attention_fwd": gk.box_window_attention_plain,
-             "box_window_attention_bwd": gk.box_window_attention_bwd_plain,
-             "masked_kv_attention_fwd": gk.masked_kv_attention_plain,
-             "masked_kv_attention_bwd": gk.masked_kv_attention_bwd_plain}
-    saved = {name: getattr(gk, name) for name in plain}
-    for name, fn in plain.items():
-        setattr(gk, name, fn)
+    plain = {(gk, "box_window_attention_fwd"): gk.box_window_attention_plain,
+             (gk, "box_window_attention_bwd"):
+                 gk.box_window_attention_bwd_plain,
+             (gk, "masked_kv_attention_fwd"): gk.masked_kv_attention_plain,
+             (gk, "masked_kv_attention_bwd"): gk.masked_kv_attention_bwd_plain,
+             (sm, "extract_lse"): sm.extract_lse_plain,
+             (sm, "extract_argmax"): sm.extract_argmax_plain}
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(gk, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
 
 def phase_small_parity(device):
@@ -828,8 +906,8 @@ def phase_small_parity(device):
         plain_launches=b_launch)
     check(bool(a.geo.has_H.all()), "parity input found no homography")
     check(bool((a.matches.valid.sum(1) > 8).all()), "parity input: no matches")
-    check(all(a_launch[k] == 4 for k in FORWARD_KERNELS),
-          "kernel path did not launch both kernels 4 times")
+    check(all(a_launch[k] == n for k, n in PER_FORWARD.items()),
+          "kernel path did not launch K1 and K2 4 times and K6 twice")
     check(all(v == 0 for v in b_launch.values()),
           "plain versions launched a kernel")
     check(gam_err <= GAM_TOL, f"GAM outputs differ by {gam_err}")
@@ -1310,8 +1388,9 @@ def phase_training(device):
           "the parameters did not change")
     check(changed["bn_stats"] == n_bn, "BatchNorm statistics did not change")
     for name, count in launches.items():
-        check(count == 4 * TRAIN_STEPS, f"{name} launched {count} times in "
-              f"{TRAIN_STEPS} train steps, expected 4 per step")
+        want = PER_TRAIN_STEP.get(name, 0)
+        check(count == want * TRAIN_STEPS, f"{name} launched {count} times "
+              f"in {TRAIN_STEPS} train steps, expected {want} per step")
 
     # one profiled step of the same recipe on a fresh batch
     tcfg = TrainConfig(batch_size=TRAIN_B, image_hw=TRAIN_HW)
@@ -1373,8 +1452,9 @@ def phase_training(device):
     check(all(x > 0 for x in cross_grad.values()),
           "the cross layers got no gradient through K4/K5")
     for name, count in live_launches.items():
-        check(count == 4, f"{name} launched {count} times in the live-GAM "
-              "step, expected 4")
+        want = PER_TRAIN_STEP.get(name, 0)
+        check(count == want, f"{name} launched {count} times in the live-GAM "
+              f"step, expected {want}")
     del state
     torch.cuda.empty_cache()
     return launches, ms_step
@@ -1476,8 +1556,9 @@ def phase_train_parity(device):
         has_H=geo_a.has_H.tolist(), kernel_launches=launch_a,
         plain_launches=launch_b)
     check(bool(geo_a.has_H.any()), "train parity input found no homography")
-    check(all(v == 4 for v in launch_a.values()),
-          "the kernel step did not launch each of K1-K5 4 times")
+    check(all(v == PER_TRAIN_STEP.get(k, 0) for k, v in launch_a.items()),
+          "the kernel step did not launch each of K1-K5 4 times and K6 "
+          "twice")
     check(not any(launch_b.values()), "the plain step launched a kernel")
     check((a["num_matches"], a["num_inliers"])
           == (b["num_matches"], b["num_inliers"]),
@@ -1553,7 +1634,7 @@ def _write_fixture(root, rng) -> None:
 
 def _forward_launches(launches: dict, forwards: int, what: str) -> None:
     for name, count in launches.items():
-        want = 4 * forwards if name in FORWARD_KERNELS else 0
+        want = PER_FORWARD.get(name, 0) * forwards
         check(count == want, f"{what}: {name} launched {count} times in "
               f"{forwards} forwards, expected {want // forwards} each")
 
@@ -2070,17 +2151,16 @@ def phase_training_loop(device, phase5_ms_step):
             if cli_dir.is_dir() else []
 
     # Run A: 4 train steps, 2 val steps, 2 figure forwards (K1/K2 only)
-    train_k = {name: 4 for name in gk.LAUNCHES}
-    val_k = {name: 4 for name in FORWARD_KERNELS}
+    train_k, val_k = PER_TRAIN_STEP, PER_FORWARD
     _per_call_launches(rec_a["train"], "train", train_k, LOOP["steps_a"])
     n_val_a = LOOP["steps_a"] // LOOP["val_every"]
     _per_call_launches(rec_a["val"], "val", val_k, n_val_a)
     for name, count in launches_a.items():
-        want = 4 * LOOP["steps_a"] + (
-            8 * n_val_a if name in FORWARD_KERNELS else 0)
+        want = (PER_TRAIN_STEP.get(name, 0) * LOOP["steps_a"]
+                + 2 * PER_FORWARD.get(name, 0) * n_val_a)
         check(count == want, f"Run A launched {name} {count} times, "
-              f"expected {want} (4 a train step, 4 a val step and 4 a "
-              "figure forward for K1/K2)")
+              f"expected {want} (K1-K5 4 and K6 2 a train step; K1/K2 4 "
+              "and K6 2 a val step and a figure forward)")
     _per_call_launches(rec_b["train"], "train", train_k,
                        LOOP["steps_b"] - LOOP["steps_a"])
     _per_call_launches(rec_b["val"], "val", val_k, 1)
@@ -2852,8 +2932,7 @@ def phase_depth(device):
         host_sweep_s = time.perf_counter() - t0
         host_launches = dict(gk.LAUNCHES)
 
-    train_k = {name: 4 for name in gk.LAUNCHES}
-    val_k = {name: 4 for name in FORWARD_KERNELS}
+    train_k, val_k = PER_TRAIN_STEP, PER_FORWARD
     _per_call_launches(rec["train"], "depth train", train_k, DEPTH["steps"])
     _per_call_launches(rec["val"], "depth val", val_k, 1)
     _per_call_launches(grec["val"], "depth gate val", val_k, dg.BATCHES)
@@ -3071,8 +3150,9 @@ def _depth_live_step(gk, device, state, batch):
     check(all(x > 0 for x in cross_grad.values()),
           "the cross layers got no gradient through K4/K5 on the depth path")
     for name, count in launches.items():
-        check(count == 4, f"{name} launched {count} times in the depth train "
-              "step on the trained checkpoint, expected 4")
+        want = PER_TRAIN_STEP.get(name, 0)
+        check(count == want, f"{name} launched {count} times in the depth "
+              f"train step on the trained checkpoint, expected {want}")
 
     gen = torch.Generator(device).manual_seed(14)
     for i in range(2):
@@ -3572,8 +3652,9 @@ def _forward_requests(device, cfg, pairs, label, phase3_ms=None,
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches=launches)
     _check_outputs(res, MAIN_HW)
+    per_fwd = _per_forward(cfg)
     for name, count in launches.items():
-        want = 4 * requests if name in FORWARD_KERNELS else 0
+        want = per_fwd.get(name, 0) * requests
         check(count == want, f"{label}: {name} launched {count} times in "
               f"{requests} forwards, expected {want // requests} each")
     if live:
@@ -3597,7 +3678,7 @@ def _forward_requests(device, cfg, pairs, label, phase3_ms=None,
         check(any(has_h), f"{label}: the live-GAM request found no "
               "homography")
         for name, count in launches.items():
-            want = 4 if name in FORWARD_KERNELS else 0
+            want = per_fwd.get(name, 0)
             check(count == want, f"{label} live GAM: {name} launched "
                   f"{count} times, expected {want}")
         del lm, live_model
@@ -3687,8 +3768,9 @@ def _kernels_vs_plain(device, cfg, label, int8):
         kp_within_0_05px=f"{kp_same:.4f}", kernel_launches=a_launch,
         plain_launches=b_launch)
     check(bool(a.geo.has_H.all()), f"{label}: no homography")
-    check(all(a_launch[k] == 4 for k in FORWARD_KERNELS),
-          f"{label}: the kernel path did not launch K1 and K2 4 times")
+    check(all(a_launch[k] == n for k, n in _per_forward(cfg).items()),
+          f"{label}: the kernel path did not launch K1 and K2 4 times "
+          f"(and K6 twice on the streamed matcher)")
     check(all(v == 0 for v in b_launch.values()),
           f"{label}: the plain versions launched a kernel")
     check(gam_err <= gam_tol, f"{label}: GAM outputs differ by {gam_err}")
@@ -3976,7 +4058,7 @@ def _dp_two_ranks(device, tmp, model_cfg, image_hw, hosts):
     launch_s = time.perf_counter() - t0
     lines = [json.loads(ln) for ln in
              (tmp / "two" / "metrics.jsonl").read_text().splitlines()]
-    train_k = {name: 4 for name in gk.LAUNCHES}
+    train_k = PER_TRAIN_STEP
     for r, res in enumerate(ranks):
         _per_call_launches(res["steps"], f"rank {r} train", train_k,
                            DP["steps"])
@@ -4495,7 +4577,7 @@ def phase_seq_parallel(device):
             for r, res in enumerate(ranks):
                 lc = res["infer"][hw]["launches"]
                 for name, count in lc.items():
-                    want = 4 if name in FORWARD_KERNELS else 0
+                    want = PER_FORWARD.get(name, 0)
                     check(count == want, f"rank {r} at {hw}: {name} "
                           f"launched {count} times a forward, expected "
                           f"{want}")
@@ -4548,8 +4630,9 @@ def phase_seq_parallel(device):
         for r, st in enumerate(steps):
             for i, s in enumerate(st):
                 for name, count in s["launches"].items():
-                    check(count == 4, f"rank {r} SP train step {i + 1}: "
-                          f"{name} launched {count} times, expected 4")
+                    want = PER_TRAIN_STEP.get(name, 0)
+                    check(count == want, f"rank {r} SP train step {i + 1}: "
+                          f"{name} launched {count} times, expected {want}")
         check(all(v <= DP_SCALAR_REL for v in gaps.values()),
               f"SP train: loss/grad_norm against one process: {gaps}")
         check(rel < DP_UPDATE["rel_l2"] and off < DP_UPDATE["off_share"],
@@ -4581,8 +4664,27 @@ KERNELS = {
     "box_window_attention_bwd_dq": (f"{_PA}:418",
                                     f"{_CSRC}/box_window_attention_bwd.cu",
                                     "training", torch.float32),
+    # K6 replaces no TPU kernel: the JAX package runs XLA ops there
+    "streaming_match_extract": (
+        "none (XLA ops: geoformer_tpu/ops/fused_loss.py:"
+        "streaming_match_extract)", f"{_CSRC}/streaming_match.cu",
+        "inference", torch.float32),
 }
-FORWARD_KERNELS = ("box_window_attention", "masked_kv_attention")
+# launch counts (one a wrapper call) a forward of the streamed matcher: K1
+# and K2 in the GAM's four layers, K6 in the two coarse matchings
+PER_FORWARD = {"box_window_attention": 4, "masked_kv_attention": 4,
+               "streaming_match_extract": 2}
+# a train step: K1-K5 four times, K6 twice (the forward's matchings)
+PER_TRAIN_STEP = {**{name: 4 for name in KERNELS},
+                  "streaming_match_extract": 2}
+
+
+def _per_forward(cfg) -> dict:
+    """PER_FORWARD for cfg's matcher: the sinkhorn matcher and the dense
+    extraction bypass K6."""
+    streamed = (cfg.match.match_type != "sinkhorn"
+                and cfg.match.streaming_extract)
+    return {**PER_FORWARD, "streaming_match_extract": 2 if streamed else 0}
 
 
 def main() -> int:

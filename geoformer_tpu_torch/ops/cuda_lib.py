@@ -43,6 +43,11 @@ SIGNATURES = {
     "gam_box_window_attention_bwd_dkv": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
         _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "gam_streaming_match_lse": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "gam_streaming_match_argmax": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _F, _I, _P),
 }
 
 

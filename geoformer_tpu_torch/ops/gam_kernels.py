@@ -43,9 +43,11 @@ from geoformer_tpu_torch.ops.attention import full_attention
 from geoformer_tpu_torch.ops.cuda_lib import load_library
 
 # name -> number of kernel launches since the last reset_launch_counts()
+# (K6, the streamed match extraction of ops/streaming_match.py, counts
+# under "streaming_match_extract", one a call of its two ops)
 LAUNCHES = {"box_window_attention": 0, "masked_kv_attention": 0,
             "masked_kv_attention_bwd": 0, "box_window_attention_bwd_dkv": 0,
-            "box_window_attention_bwd_dq": 0}
+            "box_window_attention_bwd_dq": 0, "streaming_match_extract": 0}
 
 _HEAD_DIM = 64  # the kernels' compiled head width (d_model 256 / 4 heads)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -10,12 +10,14 @@ whose weights are part of it; ``save_bundle`` writes
     model.pt2       the program, torch.export.save
 
 into one zip, and ``load_bundle`` runs it in a process that imports torch,
-numpy and the GAM kernels' op registrations (ops/gam_kernels.py), and no
-model code.
+numpy and the kernels' op registrations (ops/gam_kernels.py,
+ops/streaming_match.py), and no model code.
 
 The GAM kernels are ``torch.ops.geoformer`` custom ops, so the program
 holds one call per kernel: exported and run on ``cuda`` they launch the
-CUDA kernels (K1, K2), on ``cpu`` their plain versions. The JAX bundle
+CUDA kernels (K1, K2), on ``cpu`` their plain versions. Exported on
+``cuda``, the streamed coarse matchings are K6's two ops each; on ``cpu``
+the matcher's chunked loop is traced as plain ops. The JAX bundle
 draws RANSAC's samples from ``jax.random.key(0)`` on every call; the
 port's bakes in one noise tensor for the Gumbel draw, made once at export
 from ``torch.Generator().manual_seed(0)`` (``ransac_noise``), so the same
@@ -38,6 +40,7 @@ import torch
 import torch.nn as nn
 
 import geoformer_tpu_torch.ops.gam_kernels  # noqa: F401  (registers the ops)
+import geoformer_tpu_torch.ops.streaming_match  # noqa: F401  (K6's ops)
 
 BUNDLE_VERSION = 1
 OUTPUTS = ("mkpts0", "mkpts1", "mconf", "valid")

@@ -92,6 +92,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 1, 64), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         gk.masked_kv_attention(q, q, q, torch.ones((1, 8), device=dev))
+    # K6: bf16 features, non-contiguous ones at the op (the extraction
+    # hands it contiguous copies), a gradient to keep
+    from geoformer_tpu_torch.ops import streaming_match as sm
+
+    f = torch.zeros((1, 8, 16), device=dev)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            sm.streaming_match_extract(f.bfloat16(), f.bfloat16(), 0.1)
+        g = torch.zeros((1, 16, 8), device=dev).transpose(1, 2)
+        with pytest.raises(ValueError):
+            sm.extract_lse(g, g, None, None, 0.5)
+    with pytest.raises(RuntimeError):
+        sm.streaming_match_extract(f.clone().requires_grad_(), f, 0.1)
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
@@ -166,7 +179,8 @@ def test_autograd_functions_run_the_backward_kernels(dev):
     gk.reset_launch_counts()
     out, _ = gk.box_window_attention_fwd(q, k, v, c, (hg, wg))
     (out.sum() + gk.masked_kv_attention(q, k, v, mask).sum()).backward()
-    assert all(n == 1 for n in gk.LAUNCHES.values()), gk.LAUNCHES
+    assert all(n == (name != "streaming_match_extract")
+               for name, n in gk.LAUNCHES.items()), gk.LAUNCHES
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
 
@@ -517,7 +531,8 @@ def test_prewarm_then_match_batch_launch_k1_k2_per_forward(dev):
     """The bench model (random weights) with both GAM kernels at low coarse
     and fine thresholds, so that random weights leave matches: the
     prewarm's forward and each match_batch forward launch K1 and K2 four
-    times each and no backward kernel."""
+    times each, the streamed extraction (K6) twice (the two coarse
+    matchings) and no backward kernel."""
     import dataclasses
 
     import numpy as np
@@ -539,14 +554,15 @@ def test_prewarm_then_match_batch_launch_k1_k2_per_forward(dev):
     matcher.prewarm([((120, 160), (120, 160))], log=lambda *a: None)
     assert gk.LAUNCHES["box_window_attention"] == 4
     assert gk.LAUNCHES["masked_kv_attention"] == 4
+    assert gk.LAUNCHES["streaming_match_extract"] == 2
     gk.reset_launch_counts()
     res = matcher.match_batch([a for a, _ in pairs], [b for _, b in pairs],
                               return_geo=True)
     forwards = 2                                   # 3 pairs, batches of 2
+    per_forward = {"box_window_attention": 4, "masked_kv_attention": 4,
+                   "streaming_match_extract": 2}
     for name, count in gk.LAUNCHES.items():
-        want = 4 * forwards if name in ("box_window_attention",
-                                        "masked_kv_attention") else 0
-        assert count == want, (name, count)
+        assert count == per_forward.get(name, 0) * forwards, (name, count)
     assert len(res) == 3 and sum(len(r[0]) for r in res) > 0
     for mk0, mk1, conf, geo in res:
         assert mk0.shape == mk1.shape and conf.shape == mk0.shape[:1]
@@ -903,7 +919,8 @@ def test_seq_extraction_merges_of_two_ranks_on_the_card(dev, tmp_path):
     """The row-sharded extraction's LSE and first-wins argmax merges on
     CUDA tensors (two gloo ranks on the one card): ids equal to one
     process's on the card, the planted tie across the band edge resolved
-    to the lower global row."""
+    to the lower global row; each rank's extraction and coarse_match run
+    the kernel K6 (one count each)."""
     from geoformer_tpu_torch.core import mesh
     from torch_port_ranks import extract_inputs, sp_extract
 
@@ -911,7 +928,9 @@ def test_seq_extraction_merges_of_two_ranks_on_the_card(dev, tmp_path):
     ref = sp_extract(0, 1, *args)
     res = mesh.launch(sp_extract, 2, (2,) + args, init_dir=str(tmp_path),
                       timeout=300)
+    assert ref["launches"] == 2          # extract and coarse_match: K6
     for got in res:
+        assert got["launches"] == 2      # K6 on each rank's band
         for k in ("j_ids", "col_arg"):
             np.testing.assert_array_equal(got[k], ref[k], k)
         for k in ("i_ids", "j_ids", "valid"):
@@ -959,10 +978,10 @@ def test_host_pose_backend_on_a_card_val_step(dev, tmp_path):
     stats = {}
     on_card = run_depth_validation(val_fn, state, [batch],
                                    pose_backend="host", pose_stats=stats)
+    per_step = {"box_window_attention": 4, "masked_kv_attention": 4,
+                "streaming_match_extract": 2}
     for name, count in gk.LAUNCHES.items():
-        want = 4 if name in ("box_window_attention",
-                             "masked_kv_attention") else 0
-        assert count == want, (name, count)
+        assert count == per_step.get(name, 0), (name, count)
     scalars, pd = kept[0]
     host = ({k: torch.as_tensor(v).cpu() for k, v in scalars.items()},
             {k: v.cpu() for k, v in pd.items()})
@@ -1096,3 +1115,145 @@ def test_train_forward_by_launch_agrees_with_the_stage_ranges(dev):
     by_launch = ps.full_keys(prof, rec)["train_forward_device_ms"]
     assert stages > 0
     assert abs(by_launch - stages) <= 0.02 * stages, (by_launch, stages)
+
+
+# ---------------------------------------------------------------- K6 -------
+
+# name: (B, L, S, C, masks, row_off). "grid": the matcher's padding of
+# 480x640 to 512x640, coarse rows 60-63 of the 64x80 grid masked (a row's
+# global index is row_off + its index); "random": 20 % of rows and columns
+# masked; "item": random, and the first pair's rows all masked.
+EXTRACT_CASES = {
+    "cell_b8": (8, 5120, 5120, 256, "grid", 0),
+    "band_row_off": (2, 2560, 5120, 256, "grid", 2560),
+    "ragged": (2, 333, 517, 256, "random", 0),
+    "no_masks": (2, 700, 900, 256, None, 0),
+    "item_masked": (3, 600, 500, 256, "item", 0),
+    "train_b4": (4, 5120, 5120, 256, "grid", 0),
+}
+
+
+def _extract_inputs(case, dev):
+    b, l, s, ch, masks, row_off = EXTRACT_CASES[case]
+    gen = torch.Generator().manual_seed(len(case))
+    f0 = torch.randn((b, l, ch), generator=gen)
+    f1 = torch.randn((b, s, ch), generator=gen)
+    n = min(l, s) // 2                 # correspondences, with noise
+    f1[:, :n] = f0[:, :n] + 0.3 * torch.randn((b, n, ch), generator=gen)
+    m0 = m1 = None
+    if masks == "grid":
+        m0 = (torch.arange(l) + row_off < 60 * 80).expand(b, l).clone()
+        m1 = (torch.arange(s) < 60 * 80).expand(b, s).clone()
+    elif masks in ("random", "item"):
+        m0 = torch.rand((b, l), generator=gen) > 0.2
+        m1 = torch.rand((b, s), generator=gen) > 0.2
+        if masks == "item":
+            m0[0] = False
+    to = (lambda x: None if x is None else x.to(dev))
+    return f0.to(dev), f1.to(dev), to(m0), to(m1), 1.0 / (ch * 0.1), row_off
+
+
+def _f64_stats(f0, f1, m0, m1, inv):
+    """Row and column LSE of the masked similarity in f64 (chunked)."""
+    b, l, _ = f0.shape
+    s = f1.shape[1]
+    f1d = f1.double()
+    rows, cm = [], torch.full((b, s), -torch.inf, dtype=torch.float64,
+                              device=f0.device)
+    ca = torch.zeros_like(cm)
+    for st in range(0, l, 512):
+        t = _f64_tile(f0[:, st:st + 512], f1d, None if m0 is None
+                      else m0[:, st:st + 512], m1, inv)
+        rows.append(torch.logsumexp(t, 2))
+        mn = torch.maximum(cm, t.amax(1))
+        ca = ca * torch.exp(cm - mn) + torch.exp(t - mn[:, None]).sum(1)
+        cm = mn
+    return torch.cat(rows, 1), cm + torch.log(ca)
+
+
+def _f64_tile(f0c, f1d, m0c, m1, inv):
+    t = torch.einsum("blc,bsc->bls", f0c.double(), f1d) * inv
+    valid = torch.ones_like(t, dtype=torch.bool)
+    if m0c is not None:
+        valid &= m0c[:, :, None]
+    if m1 is not None:
+        valid &= m1[:, None, :]
+    return t.masked_fill(~valid, -1e9)
+
+
+def _near_tie_picks(got, ref, f_rows, f_cols, m_rows, m_cols, inv, sub):
+    """Where the kernel's arg-max (over f_cols, per row of f_rows) differs
+    from the plain one's: the plain values 2 t - sub (f32, TF32 off, as in
+    the plain loop) have their top two within 1e-5 there, and the kernel's
+    pick scores within 1e-5 of the best."""
+    for bi in range(got.shape[0]):
+        idx = torch.nonzero(got[bi] != ref[bi]).flatten()
+        if idx.numel() == 0:
+            continue
+        t = (f_rows[bi, idx] @ f_cols[bi].T) * inv
+        valid = torch.ones_like(t, dtype=torch.bool)
+        if m_rows is not None:
+            valid &= m_rows[bi, idx, None]
+        if m_cols is not None:
+            valid &= m_cols[bi, None, :]
+        u = 2.0 * t.masked_fill(~valid, -1e9) - sub[bi][None, :]
+        top = u.topk(2, dim=1).values
+        assert ((top[:, 0] - top[:, 1]) <= 1e-5).all(), (bi, idx)
+        pick = u.gather(1, got[bi, idx, None]).squeeze(1)
+        assert (pick >= top[:, 0] - 1e-5).all(), (bi, idx)
+
+
+@pytest.mark.parametrize("case", sorted(EXTRACT_CASES))
+def test_streaming_match_kernel_matches_plain(dev, case):
+    """K6 against the plain chunked loop on the card (f32, TF32 off). The
+    values are held to an f64 evaluation of the same formulas, where the
+    plain loop is itself off by ~1e-5 at the matcher's shape (its f32
+    products): r and c within 2e-5, row_best within 1e-5 relative at the
+    kernel's own pick, on rows and columns with a valid entry; elsewhere
+    (all fill) equal to the plain loop's. The picks (j_ids, col_arg)
+    equal the plain loop's except at its near-ties (top two within 1e-5),
+    where the kernel's pick scores within 1e-5 of the best. One count in
+    LAUNCHES a call of streaming_match_extract."""
+    from geoformer_tpu_torch.ops import streaming_match as sm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f0, f1, m0, m1, inv, row_off = _extract_inputs(case, dev)
+    b, l, _ = f0.shape
+    with torch.no_grad():
+        rv = sm._row_valid(f0, m0)
+        pr, pm, pacc = sm._lse_pass(f0, f1, rv, m1, inv, 600)
+        pc = sm._col_lse(pm, pacc, False)
+        p_rb, p_j, p_cm, p_ca = sm._argmax_pass(f0, f1, rv, m1, inv, pr, pc,
+                                                600, row_off)
+        r, m, acc = torch.ops.geoformer.streaming_match_lse(f0, f1, m0, m1,
+                                                            inv)
+        c = sm._col_lse(m, acc, False)
+        rb, j, cm, ca = torch.ops.geoformer.streaming_match_argmax(
+            f0, f1, m0, m1, r, c, inv, row_off)
+        r64, c64 = _f64_stats(f0, f1, m0, m1, inv)
+    live_r, live_c = r64 > -1e8, c64 > -1e8
+    assert (r - r64)[live_r].abs().max().item() <= 2e-5
+    assert (c - c64)[live_c].abs().max().item() <= 2e-5
+    assert torch.equal(r[~live_r], pr[~live_r])
+    assert torch.equal(c[~live_c], pc[~live_c])
+    # row_best at the kernel's pick, in f64
+    fj = torch.gather(f1.double(), 1, j[..., None].expand(-1, -1, f1.shape[2]))
+    t = (f0.double() * fj).sum(-1) * inv
+    ok = rv if m1 is None else rv & torch.gather(m1, 1, j)
+    t = torch.where(ok, t, torch.full_like(t, -1e9))
+    rb64 = torch.exp(2 * t - torch.gather(c64, 1, j) - r64)
+    assert ((rb - rb64).abs() / rb64)[live_r].max().item() <= 1e-5
+    assert torch.equal(rb[~live_r], p_rb[~live_r])
+    _near_tie_picks(j, p_j, f0, f1, m0, m1, inv, pc)
+    _near_tie_picks(ca - row_off, p_ca - row_off, f1, f0, m1, m0, inv, pr)
+    assert (cm - p_cm)[live_c].abs().max().item() <= 1e-4
+    # through streaming_match_extract: one count, the ops' outputs
+    if row_off == 0:
+        gk.reset_launch_counts()
+        with torch.no_grad():
+            out = sm.streaming_match_extract(
+                f0, f1, 0.1, None if m0 is None else m0.float(),
+                None if m1 is None else m1.float())
+        assert gk.LAUNCHES["streaming_match_extract"] == 1
+        assert torch.equal(out[0], rb) and torch.equal(out[1], j)
+        assert torch.equal(out[2], ca)

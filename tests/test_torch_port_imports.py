@@ -120,7 +120,7 @@ def test_kernel_sources_and_hash():
     names = {p.name for p in cuda_lib.CSRC_DIR.glob("*.cu")}
     assert names == {"box_window_attention.cu", "masked_kv_attention.cu",
                      "box_window_attention_bwd.cu",
-                     "masked_kv_attention_bwd.cu"}
+                     "masked_kv_attention_bwd.cu", "streaming_match.cu"}
     for p in cuda_lib.CSRC_DIR.glob("*.cu"):
         src = p.read_text()
         assert "torch/extension.h" not in src
@@ -130,10 +130,48 @@ def test_kernel_sources_and_hash():
     assert set(cuda_lib.SIGNATURES) == {
         "gam_box_window_attention", "gam_masked_kv_attention",
         "gam_masked_kv_attention_bwd", "gam_box_window_attention_bwd_dq",
-        "gam_box_window_attention_bwd_dkv"}
+        "gam_box_window_attention_bwd_dkv", "gam_streaming_match_lse",
+        "gam_streaming_match_argmax"}
     for name in cuda_lib.SIGNATURES:
         assert sum(f'"C" int {name}(' in p.read_text()
                    for p in cuda_lib.CSRC_DIR.glob("*.cu")) == 1, name
+
+
+def _c_prototypes():
+    """exported symbol -> its parameter list, from the CUDA sources."""
+    import re
+
+    from geoformer_tpu_torch.ops import cuda_lib
+
+    protos = {}
+    for p in cuda_lib.CSRC_DIR.glob("*.cu"):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                             p.read_text()):
+            protos[m.group(1)] = [a.strip() for a in m.group(2).split(",")]
+    return protos
+
+
+def _ctype_of(param: str):
+    import ctypes
+
+    if "*" in param:
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[param.split()[0]]
+
+
+@pytest.mark.parametrize("name", [
+    "gam_box_window_attention", "gam_masked_kv_attention",
+    "gam_masked_kv_attention_bwd", "gam_box_window_attention_bwd_dq",
+    "gam_box_window_attention_bwd_dkv", "gam_streaming_match_lse",
+    "gam_streaming_match_argmax"])
+def test_signatures_follow_the_c_prototypes(name):
+    """ctypes passes each argument as SIGNATURES types it: a pointer or the
+    stream as c_void_p, an int as c_int, a float as c_float, one for one
+    with the C declaration (a pointer typed as an int would be cut)."""
+    from geoformer_tpu_torch.ops import cuda_lib
+
+    params = _c_prototypes()[name]
+    assert list(cuda_lib.SIGNATURES[name]) == [_ctype_of(p) for p in params]
 
 
 def test_the_int8_and_alternate_modules_are_walked():

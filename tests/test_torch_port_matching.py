@@ -206,3 +206,93 @@ def test_fine_matching_matches_jax():
     got = tfine.fine_matching(t(conf), tm, 10, 10, 8, 2, 5, 0.5)
     for name in ("mkpts0", "mkpts1", "mconf", "valid"):
         assert_close(getattr(got, name), getattr(ref, name), 0, 0, name)
+
+
+def _k6_extract(f0, f1, m0, m1, temperature=0.1):
+    """streaming_match_extract's outputs from K6's two ops (their CPU
+    implementations) and the column LSE between them."""
+    inv = 1.0 / (f0.shape[2] * temperature)
+    b0 = None if m0 is None else m0 > 0
+    b1 = None if m1 is None else m1 > 0
+    r, m, acc = tsm.extract_lse(f0, f1, b0, b1, inv)
+    c = tsm._col_lse(m, acc, False)
+    row_best, j_ids, _, col_arg = tsm.extract_argmax(f0, f1, b0, b1, r, c,
+                                                     inv)
+    return r, c, row_best, j_ids, col_arg
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k6_ops_on_the_cpu_are_the_plain_loop(masked):
+    """On a CPU tensor streaming_match_extract runs the chunked loop and
+    launches nothing; K6's ops there (their plain versions) give the JAX
+    package's streaming_match_extract and sim_lse on the same fixtures."""
+    from geoformer_tpu_torch.ops import gam_kernels
+
+    f0, f1 = _feats(1)
+    m0, m1 = _masks(1, 2, 70, 60) if masked else (None, None)
+    jm = (None, None) if not masked else (jnp.asarray(m0), jnp.asarray(m1))
+    tm = (None, None) if not masked else (t(m0), t(m1))
+    ref = jfl.streaming_match_extract(jnp.asarray(f0), jnp.asarray(f1), 0.1,
+                                      *jm)
+    r_ref, c_ref = jfl.sim_lse(jnp.asarray(f0), jnp.asarray(f1), 0.1, *jm)
+    gam_kernels.reset_launch_counts()
+    got = tsm.streaming_match_extract(t(f0), t(f1), 0.1, *tm)
+    assert not any(gam_kernels.LAUNCHES.values()), gam_kernels.LAUNCHES
+    r, c, row_best, j_ids, col_arg = _k6_extract(t(f0), t(f1), *tm)
+    assert_close(r, r_ref, 1e-5, 1e-5)
+    assert_close(c, c_ref, 1e-5, 1e-5)
+    assert_close(row_best, ref[0], 1e-4, 1e-6, "row_best")
+    np.testing.assert_array_equal(n(j_ids), np.asarray(ref[1]))
+    if not masked:  # masked columns' argmax is a tie among -1e9 rows
+        np.testing.assert_array_equal(n(col_arg), np.asarray(ref[2]))
+    for a, b in zip((row_best, j_ids, col_arg), got[:3]):
+        assert torch.equal(a, b)
+
+
+class _K6Module(torch.nn.Module):
+    def forward(self, f0, f1, m0, m1):
+        r, m, acc = tsm.extract_lse(f0, f1, m0, m1, 0.5)
+        c = tsm._col_lse(m, acc, False)
+        return (r, c) + tuple(tsm.extract_argmax(f0, f1, m0, m1, r, c, 0.5,
+                                                 3))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k6_ops_export_through_their_fakes(masked):
+    """torch.export traces K6's two ops as single calls through their fake
+    implementations (the shapes and dtypes of the outputs); the program
+    runs on the CPU as the eager calls do, and on meta tensors the ops
+    give the same shapes."""
+    f0, f1 = (t(x) for x in _feats(3, l=50, s=40))
+    masks = tuple(t(x) > 0 for x in _masks(3, 2, 50, 40)) if masked \
+        else (None, None)
+    eager = _K6Module()(f0, f1, *masks)
+    ep = torch.export.export(_K6Module(), (f0, f1, *masks))
+    calls = [nd.target for nd in ep.graph.nodes if nd.op == "call_function"]
+    assert torch.ops.geoformer.streaming_match_lse.default in calls
+    assert torch.ops.geoformer.streaming_match_argmax.default in calls
+    outs = [nd for nd in ep.graph.nodes if nd.op == "output"][0].args[0]
+    assert [(tuple(o.meta["val"].shape), o.meta["val"].dtype)
+            for o in outs] == [(tuple(x.shape), x.dtype) for x in eager]
+    ran = ep.module()(f0, f1, *masks)
+    for a, b in zip(ran, eager):
+        assert torch.equal(a, b)
+    meta = _K6Module()(f0.to("meta"), f1.to("meta"),
+                       *(None if x is None else x.to("meta") for x in masks))
+    assert [(x.shape, x.dtype, x.device.type) for x in meta] == \
+        [(x.shape, x.dtype, "meta") for x in eager]
+
+
+@pytest.mark.parametrize("op", ["streaming_match_lse",
+                                "streaming_match_argmax"])
+def test_k6_ops_pass_opcheck(op):
+    """Schema and fake tensor checks of K6's ops (no autograd: the card
+    path raises where a gradient could flow)."""
+    f0, f1 = (t(x) for x in _feats(4, l=30, s=20))
+    m0, m1 = (t(x) > 0 for x in _masks(4, 2, 30, 20))
+    args = (f0, f1, m0, m1, 0.5)
+    if op == "streaming_match_argmax":
+        r, m, acc = tsm.extract_lse(*args)
+        args = (f0, f1, m0, m1, r, tsm._col_lse(m, acc, False), 0.5, 2)
+    torch.library.opcheck(getattr(torch.ops.geoformer, op), args,
+                          test_utils=("test_schema", "test_faketensor"))

@@ -349,13 +349,16 @@ def sp_transformer(rank, seq, cfg, coarse, masks):
 def sp_extract(rank, seq, f0, f1, m0, m1, chunk, thr, capacity,
                device="cpu"):
     """streaming_match_extract on this rank's rows and columns (the row
-    statistics gathered) and coarse_match's ids, on ``device``."""
+    statistics gathered) and coarse_match's ids, on ``device``, with the
+    count of the streamed-extraction kernel's calls (0 on the CPU)."""
     from geoformer_tpu_torch.core import mesh, spmd
     from geoformer_tpu_torch.models.coarse_matching import coarse_match
+    from geoformer_tpu_torch.ops import gam_kernels
     from geoformer_tpu_torch.ops.streaming_match import (
         streaming_match_extract,
     )
 
+    gam_kernels.reset_launch_counts()
     with mesh.seq_groups(seq):
         band = spmd.row_band(f0.shape[1])
         whole = [torch.from_numpy(x).to(device) for x in (f0, f1, m0, m1)]
@@ -369,7 +372,9 @@ def sp_extract(rank, seq, f0, f1, m0, m1, chunk, thr, capacity,
                         j_ids=_np(spmd.gather(j)), col_arg=_np(ca),
                         conf00=_np(c00),
                         ids={k: _np(v) for k, v in m._asdict().items()
-                             if k != "conf"})
+                             if k != "conf"},
+                        launches=gam_kernels.LAUNCHES[
+                            "streaming_match_extract"])
 
 
 def _forward_out(out, feats):
