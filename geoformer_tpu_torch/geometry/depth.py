@@ -2,8 +2,15 @@
 
 Counterpart of geoformer_tpu/geometry/depth.py: a keypoint of image0 is
 lifted by its depth through K0^-1, moved by T_0to1 and projected by K1;
-it is valid where its depth is nonzero, it lands inside image1, and
-image1's depth there agrees with the computed one within 0.2 (relative).
+it is valid where it lies on depth0's map and its depth there is nonzero,
+it lands inside image1, and image1's depth there is nonzero and agrees
+with the computed one within 0.2 (relative). Two of these rules are the
+published warp_kpts's (loftr_src/loftr/utils/geometry.py) and not the JAX
+package's: a keypoint off the map is invalid (the JAX package reads the
+nearest border pixel's depth; the published indexing reads the padding of
+the padded map, whose depth is 0), and so is one that lands where image1
+has no depth (the JAX package counts it consistent; the published ratio
+(0 - z) / 0 is infinite there).
 The 3x3 products are written out as elementwise sums in f32, so that no
 TF32 matmul can move the cells that the rounding picks; the JAX package
 runs them at Precision.HIGHEST.
@@ -42,7 +49,9 @@ def warp_kpts_depth(kpts0: torch.Tensor, depth0: torch.Tensor,
     Returns (valid [B, L] bool, w_kpts0 [B, L, 2])."""
     h, w = depth0.shape[1:3]
     d0 = _sample(depth0, kpts0)                                   # [B, L]
-    nonzero = d0 != 0
+    r = torch.round(kpts0)
+    nonzero = (d0 != 0) & (r[..., 0] >= 0) & (r[..., 0] < w) \
+        & (r[..., 1] >= 0) & (r[..., 1] < h)
     ones = torch.ones_like(kpts0[..., :1])
     kpts0_h = torch.cat([kpts0, ones], -1) * d0[..., None]        # [B, L, 3]
     cam0 = _mat_vec(torch.linalg.inv(K0), kpts0_h)
@@ -56,8 +65,8 @@ def warp_kpts_depth(kpts0: torch.Tensor, depth0: torch.Tensor,
     safe = torch.where(covis[..., None], w_kpts0,
                        torch.zeros_like(w_kpts0))
     d1 = _sample(depth1, torch.floor(safe))
-    den = torch.where(d1 == 0, torch.full_like(d1, 1e9), d1)
-    consistent = torch.abs((d1 - z_computed) / den) < 0.2
+    den = torch.where(d1 == 0, torch.ones_like(d1), d1)
+    consistent = (d1 != 0) & (torch.abs((d1 - z_computed) / den) < 0.2)
     return nonzero & covis & consistent, w_kpts0
 
 

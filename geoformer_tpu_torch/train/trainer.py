@@ -275,21 +275,24 @@ def make_val_step(tcfg: TrainConfig):
 def _depth_losses(out, batch, tcfg: TrainConfig, cfg: GeoFormerConfig,
                   global_counts: bool = False):
     """The streaming GeoLoss of a forward's output on a posed-RGBD batch,
-    its GT from the depths and poses at original resolution."""
+    its GT from the depths and poses at original resolution (the spans
+    depth.coarse_gt and depth.fine_gt inside train.supervision)."""
     H, W = tcfg.image_hw
     wc = W // cfg.coarse_scale
     mask0, mask1 = batch.get("mask0"), batch.get("mask1")
     s0, s1 = batch.get("scale0"), batch.get("scale1")
     with span("train.supervision"), torch.no_grad():
-        gt_j, gt_valid = spvs_coarse_depth_sparse(
-            batch["depth0"], batch["depth1"], batch["T_0to1"],
-            batch["T_1to0"], batch["K0"], batch["K1"], (H, W),
-            cfg.coarse_scale, mask0, mask1, s0, s1)
-        fine_gt = spvs_fine_depth(
-            out.matches, batch["depth0"], batch["depth1"], batch["T_0to1"],
-            batch["K0"], batch["K1"], wc, wc, cfg.coarse_scale,
-            cfg.fine_scale, cfg.fine_match.window_size, scale0=s0,
-            scale1=s1)
+        with span("depth.coarse_gt"):
+            gt_j, gt_valid = spvs_coarse_depth_sparse(
+                batch["depth0"], batch["depth1"], batch["T_0to1"],
+                batch["T_1to0"], batch["K0"], batch["K1"], (H, W),
+                cfg.coarse_scale, mask0, mask1, s0, s1)
+        with span("depth.fine_gt"):
+            fine_gt = spvs_fine_depth(
+                out.matches, batch["depth0"], batch["depth1"],
+                batch["T_0to1"], batch["K0"], batch["K1"], wc, wc,
+                cfg.coarse_scale, cfg.fine_scale,
+                cfg.fine_match.window_size, scale0=s0, scale1=s1)
     with span("train.loss"):
         return geo_loss_streaming(
             out.feats, gt_j, gt_valid, out.fine.fine_conf, fine_gt,

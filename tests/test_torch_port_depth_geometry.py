@@ -11,8 +11,11 @@ another cell in either package. The keypoints are kept where the float64
 warp puts both at least TIE px from a tie (as
 tests/test_torch_port_train_step.py keeps its cells from borders); the
 fixture asserts that the kept ones still cover every branch (valid,
-holes, inconsistent, out of view). Bars: ``valid`` equal, the warped
-points within 1e-3 px; the symmetric epipolar distance within 1e-5
+holes, inconsistent, out of view). The port follows the published
+warp_kpts where the JAX package departs from it (a keypoint off the map,
+a warp onto a zero depth: both invalid), so the JAX side is held to those
+two rules too (torch_port_util.published_warp). Bars: ``valid`` equal,
+the warped points within 1e-3 px; the symmetric epipolar distance within 1e-5
 relative where its residual does not cancel (see the test);
 relative_pose_error within 1e-6 degrees.
 
@@ -44,7 +47,7 @@ from geoformer_tpu_torch.models.coarse_matching import (  # noqa: E402
     CoarseMatches,
 )
 from geoformer_tpu_torch.train import supervision as PS  # noqa: E402
-from torch_port_util import n, t  # noqa: E402
+from torch_port_util import n, published_warp, t  # noqa: E402
 from torch_port_util import one_torch_thread  # noqa: E402,F401
 
 TIE = 1e-3
@@ -105,12 +108,14 @@ def warp_case():
     arr = dict(kpts0=np.stack(kpts).astype(np.float32),
                depth0=np.stack(depth0), depth1=np.stack(depth1),
                T=np.stack(Ts), K0=np.stack(Ks), K1=np.stack(Ks))
-    jv, jw = J.warp_kpts_depth(*(jnp.asarray(arr[k]) for k in (
-        "kpts0", "depth0", "depth1", "T", "K0", "K1")))
+    jargs = [jnp.asarray(arr[k]) for k in ("kpts0", "depth0", "depth1",
+                                           "T", "K0", "K1")]
+    jv, jw = published_warp(J.warp_kpts_depth)(*jargs)
+    jv_own = J.warp_kpts_depth(*jargs)[0]
     pv, pw = P.warp_kpts_depth(*(t(arr[k]) for k in (
         "kpts0", "depth0", "depth1", "T", "K0", "K1")))
     return dict(arr=arr, jv=np.asarray(jv), jw=np.asarray(jw), pv=n(pv),
-                pw=n(pw))
+                pw=n(pw), jv_own=np.asarray(jv_own))
 
 
 def test_the_keypoints_cover_every_branch(warp_case):
@@ -128,6 +133,7 @@ def test_the_keypoints_cover_every_branch(warp_case):
     assert ((d0 == 0)).sum() > 10                        # holes
     assert (~inside & (d0 > 0)).sum() > 10               # out of view
     assert (inside & (d0 > 0) & ~jv).sum() > 10          # inconsistent
+    assert (warp_case["jv_own"] & ~jv).sum() > 0         # published rules
 
 
 def test_warp_kpts_depth_matches_jax(warp_case):
@@ -222,9 +228,11 @@ def spvs_case():
     jmatch = JMatches(None, jnp.asarray(i_ids), jnp.asarray(j_ids),
                       jnp.asarray(valid), jnp.asarray(zeros))
     tmatch = CoarseMatches(None, t(i_ids), t(j_ids), t(valid), t(zeros))
-    out["jax_fine"] = np.asarray(JS.spvs_fine_depth(
-        jmatch, jargs[0], jargs[1], jargs[2], jargs[4], jargs[5], 8, 8,
-        scale0=js, scale1=js))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "warp_kpts_depth", published_warp(J.warp_kpts_depth))
+        out["jax_fine"] = np.asarray(JS.spvs_fine_depth(
+            jmatch, jargs[0], jargs[1], jargs[2], jargs[4], jargs[5], 8, 8,
+            scale0=js, scale1=js))
     out["port_fine"] = n(PS.spvs_fine_depth(
         tmatch, targs[0], targs[1], targs[2], targs[4], targs[5], 8, 8,
         scale0=ts, scale1=ts))

@@ -18,6 +18,11 @@ within 1e-4 cells of a border (of the batch seeds 0-3, only seed 1 keeps
 them all clear, by 1.6e-4; on a pure shift of the image the trained model
 fits an exact one-cell translation and every cell lies on a border).
 
+The port's depth warp follows the published warp_kpts where the JAX
+package departs from it (a keypoint off the map, a warp onto a zero depth:
+both invalid), so the JAX step runs with those two rules too
+(torch_port_util.published_warp).
+
 Bars: the val scalars within 1e-4 relative; the match validity equal; the
 valid matches' keypoints at original resolution within 1e-3 px and their
 confidences within 1e-4; their squared symmetric epipolar errors within
@@ -49,11 +54,14 @@ from geoformer_tpu_torch.train.trainer import (  # noqa: E402
     TrainState,
     make_depth_val_step,
 )
+from geoformer_tpu.geometry import depth as jdepth  # noqa: E402
+from geoformer_tpu.train import supervision as jsupervision  # noqa: E402
 from torch_port_util import (  # noqa: E402
     depth_batch,
     jax_forward_and_draws,
     n,
     port_config,
+    published_warp,
     t,
 )
 from torch_port_util import one_torch_thread  # noqa: E402,F401
@@ -85,8 +93,11 @@ def run():
     key = jax.random.key(5)
     state = JTrainState(variables["params"], variables["batch_stats"], None,
                         jnp.zeros((), jnp.int32))
-    scalars, pd = jax.jit(j_make_depth_val_step(JGeoFormer(cfg), tc))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsupervision, "warp_kpts_depth",
+                   published_warp(jdepth.warp_kpts_depth))
+        scalars, pd = jax.jit(j_make_depth_val_step(JGeoFormer(cfg), tc))(
+            state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
     out, sample_idx = jax_forward_and_draws(
         cfg, variables, batch["image0"], batch["image1"], key,
         batch["mask0"], batch["mask1"])

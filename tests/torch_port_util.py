@@ -463,6 +463,32 @@ class JaxPnpDraws:
         monkeypatch.setattr(module, "pnp_pose", injected)
 
 
+def published_warp(warp):
+    """The JAX package's warp_kpts_depth ``warp`` with the two rules of the
+    published warp_kpts that the port follows and the JAX package does not
+    (geoformer_tpu_torch/geometry/depth.py): a keypoint off depth0's map
+    is invalid, and so is one whose warp lands on a zero depth in depth1.
+    The warped points are the JAX package's."""
+    import jax.numpy as jnp
+
+    def published(kpts0, depth0, depth1, T_0to1, K0, K1):
+        valid, w_kpts0 = warp(kpts0, depth0, depth1, T_0to1, K0, K1)
+        h, w = depth0.shape[1:3]
+        r = jnp.round(kpts0)
+        on = ((r[..., 0] >= 0) & (r[..., 0] < w) & (r[..., 1] >= 0)
+              & (r[..., 1] < h))
+        covis = ((w_kpts0[..., 0] > 0) & (w_kpts0[..., 0] < w - 1)
+                 & (w_kpts0[..., 1] > 0) & (w_kpts0[..., 1] < h - 1))
+        safe = jnp.floor(jnp.where(covis[..., None], w_kpts0, 0.0))
+        x = jnp.clip(safe[..., 0].astype(jnp.int32), 0, w - 1)
+        y = jnp.clip(safe[..., 1].astype(jnp.int32), 0, h - 1)
+        d1 = jnp.take_along_axis(depth1.reshape(depth1.shape[0], -1),
+                                 y * w + x, axis=1)
+        return valid & on & (d1 != 0), w_kpts0
+
+    return published
+
+
 def pose_gap(a, b):
     """(rotation angle in degrees, camera-centre distance) between two
     world->cam poses given as qvec/tvec."""
